@@ -1,0 +1,159 @@
+"""Single-device Pippenger stages: batch accumulation and bucket reduction.
+
+The counterpart of the JAX package's `ops/pippenger.py` on the wire path:
+
+1. `compute_digits`: window split, sign flag in bit 31.
+2. `_accumulate_batch`: a stable sort of each window's bucket ids, a
+   gather of packed point rows into run order, the `accumulate_scan`
+   kernel over C lanes of L steps per window, a segmented scan over lanes
+   with `padd_masked`, a bucket histogram, and bucket assembly with `padd`.
+3. `reduce_buckets`: the grouped running sum (two `grouped_running_sum`
+   launches), log2(Gs) doublings and one add.
+
+Point planes travel as int32 tensors of u32 bits; ids, digits and
+positions are int64. Every point kernel goes through `ops/kernels`, which
+runs the hand-written CUDA kernel on the card and its plain version on
+the CPU.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import curve_ops, limbs, windows
+from .curve_ops import PointVec
+from .kernels import padd_kernels as pk
+
+
+def n_buckets(window_size: int, signed_digits: bool) -> int:
+    """Bucket-array width: 2^w unsigned; |digit| <= 2^(w-1) signed, padded
+    to a multiple of 32 for the grouped reduction."""
+    if not signed_digits:
+        return 1 << window_size
+    b = (1 << (window_size - 1)) + 1
+    return -(-b // 32) * 32
+
+
+def compute_digits(
+    scalar_words: torch.Tensor, window_size: int, signed_digits: bool
+) -> torch.Tensor:
+    """[8, n] LE scalar words (int64) -> [K, n] int64 bucket ids, with the
+    sign flag in bit 31 (packed in int64, so no int32 overflow)."""
+    if signed_digits:
+        buckets, sgn = windows.split_windows_signed(scalar_words, window_size)
+        return buckets | (sgn << 31)
+    return windows.split_windows(scalar_words, window_size)
+
+
+def identity_stacked(shape, device) -> torch.Tensor:
+    """[4, 16, *shape] int32 identity points."""
+    return curve_ops.identity(tuple(shape), device).stacked().to(torch.int32)
+
+
+def _accumulate_batch(
+    points: torch.Tensor,  # [3, 16, M] int32 Montgomery Niels planes
+    digits: torch.Tensor,  # [K, M] int64 bucket ids, sign flag in bit 31
+    w: int,
+    C: int,
+    L: int,
+    B: int,
+) -> torch.Tensor:
+    """One batch -> bucket sums [4, 16, K, B] int32 (Montgomery)."""
+    K = windows.n_windows(w)
+    M = points.shape[-1]
+    assert M == C * L, (M, C, L)
+    W = K * C
+    dev = points.device
+
+    # ---- sort each window's ids (stable, as lax.sort); sign bit not a key --
+    keys = digits & 0x7FFFFFFF
+    sorted_digits, perm = torch.sort(keys, dim=1, stable=True)
+    sorted_packed = torch.gather(digits, 1, perm)
+
+    # Step-major [L, K, C]: lane (k, c) scans sorted positions c*L + j.
+    perm_lkc = perm.reshape(K, C, L).permute(2, 0, 1)
+    ids_lw = limbs.as_i32(sorted_packed).reshape(K, C, L).permute(2, 0, 1).reshape(L, W).contiguous()
+
+    # Packed point rows (two 16-bit digits per u32 word, the scan's input
+    # format), gathered into run order: [3, 8, L, K*C].
+    p64 = limbs.as_i64(points)
+    packed = limbs.as_i32(p64[:, 0::2] | (p64[:, 1::2] << 16))  # [3, 8, M]
+    rows = packed.reshape(24, M).t().contiguous()[perm_lkc.reshape(-1)]  # [L*K*C, 24]
+    sorted_pts = rows.t().reshape(3, 8, L, W).contiguous()
+    del rows
+
+    final_acc, final_id, staged = pk.accumulate_scan(sorted_pts, ids_lw)
+    del sorted_pts
+    final_id = final_id.to(torch.int64).reshape(K, C)
+
+    # ---- segmented inclusive scan over lanes (runs crossing lane edges) ----
+    lane = torch.arange(C, device=dev)
+    carries = final_acc.reshape(4, 16, K, C)
+    for i in range(max((C - 1).bit_length(), 1)):
+        d = 1 << i
+        shifted = torch.roll(carries, d, dims=-1)
+        ok = (lane >= d) & (torch.roll(final_id, d, dims=-1) == final_id)
+        carries = pk.padd_masked(
+            carries.reshape(4, 16, W), shifted.reshape(4, 16, W),
+            ok.reshape(W).to(torch.int32),
+        ).reshape(4, 16, K, C)
+    # At the last lane of each equal-id segment: the segment's total.
+
+    # ---- per-bucket combine via analytic positions ----
+    k_idx = torch.arange(K, device=dev).reshape(K, 1)
+    hist = torch.bincount((k_idx * B + sorted_digits).reshape(-1), minlength=K * B)
+    hist = hist.reshape(K, B)
+    e_pos = torch.cumsum(hist, dim=1)  # first sorted index past bucket b
+    s_pos = e_pos - hist
+    c_last = e_pos // L - 1
+    carry_valid = c_last >= s_pos // L
+    e_mod = e_pos % L
+    staged_valid = (e_pos > s_pos) & (e_mod != 0)
+    c1 = torch.clamp(e_pos // L, 0, C - 1)
+    j_staged = torch.clamp(e_mod, 0, L - 1)
+    c_last_c = torch.clamp(c_last, 0, C - 1)
+
+    staged_idx = (j_staged * W + k_idx * C + c1).reshape(-1)
+    staged_pts = staged.reshape(4, 16, L * W).index_select(2, staged_idx)
+    del staged
+    carry_idx = (k_idx * C + c_last_c).reshape(-1)
+    carry_pts = carries.reshape(4, 16, W).index_select(2, carry_idx)
+
+    ident = identity_stacked((K * B,), dev)
+    a_st = torch.where(staged_valid.reshape(-1), staged_pts, ident)
+    b_st = torch.where(carry_valid.reshape(-1), carry_pts, ident)
+    return pk.padd(a_st, b_st).reshape(4, 16, K, B)
+
+
+def group_size(n_buckets: int) -> int:
+    """The grouped reduction's Gs, by the TPU rule of the JAX package."""
+    return 32 if n_buckets >= 1024 else (16 if n_buckets >= 64 else 1)
+
+
+def reduce_buckets(bucket_sums: torch.Tensor) -> torch.Tensor:
+    """Bucket reduction W_k = sum_b b * S_b -> window sums [4, 16, K] int64.
+
+    Split b = g*Gs + r (G groups of Gs):
+
+        W = Gs * sum_g g*T_g  +  sum_g U_g,
+        T_g = sum_r S[g, r],  U_g = sum_r r * S[g, r].
+
+    One grouped pass gives T and U for all K*G groups. A second pass over
+    the G axis, with lanes 0..K-1 carrying T and lanes K..2K-1 carrying U,
+    gives V = sum_g g*T_g (its U output) and sum_g U_g (its T output).
+    """
+    K, B = bucket_sums.shape[-2], bucket_sums.shape[-1]
+    Gs = group_size(B)
+    if Gs == 1 or B % Gs:
+        raise NotImplementedError(
+            f"{B} buckets: only the grouped reduction (Gs = 16 or 32) is ported"
+        )
+    G = B // Gs
+    s = bucket_sums.reshape(4, 16, K * G, Gs).permute(3, 0, 1, 2).contiguous()
+    T, U = pk.grouped_running_sum(s)  # [4, 16, K*G]
+    tu = torch.cat([T.reshape(4, 16, K, G), U.reshape(4, 16, K, G)], dim=2)
+    T2, U2 = pk.grouped_running_sum(tu.permute(3, 0, 1, 2).contiguous())  # [4, 16, 2K]
+    V = PointVec.from_stacked(U2[..., :K].to(torch.int64))
+    U_tot = PointVec.from_stacked(T2[..., K : 2 * K].to(torch.int64))
+    for _ in range(Gs.bit_length() - 1):  # * Gs, a power of two
+        V = curve_ops.double(V)
+    return curve_ops.add(V, U_tot).stacked()

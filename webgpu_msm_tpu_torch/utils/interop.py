@@ -1,0 +1,28 @@
+"""Stage state between the JAX package and the port, as numpy uint32.
+
+A JAX array fetched with `np.asarray` (Niels planes, a bucket carry,
+window sums) becomes the port's tensor with the same bits, and back, so a
+test can feed both packages the same state and compare them array for
+array. The port keeps u32 bits in int32 tensors (torch's uint32 lacks
+arithmetic) and computes in int64.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def planes_from_numpy(arr: np.ndarray, device="cpu") -> torch.Tensor:
+    """numpy u32 planes -> int32 tensor holding the same bits on `device`."""
+    a = np.ascontiguousarray(np.asarray(arr, dtype=np.uint32))
+    return torch.from_numpy(a.view(np.int32).copy()).to(device)
+
+
+def planes_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """int32 tensor of u32 bits, or int64 values in [0, 2^32) -> numpy u32."""
+    a = t.detach().cpu().numpy()
+    if a.dtype == np.int32:
+        return a.view(np.uint32)
+    if a.size and (a.min() < 0 or a.max() > 0xFFFFFFFF):
+        raise ValueError("values outside u32 range")
+    return a.astype(np.uint32)
