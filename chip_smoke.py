@@ -7,13 +7,24 @@
 2. Builds the CUDA kernels from `webgpu_msm_tpu_torch/ops/kernels/csrc`
    with nvcc and prints each kernel's ptxas registers, spills and shared
    memory.
-3. Runs each of the five kernels and its plain PyTorch version on the card
-   on seeded inputs at the shapes of the 2^20-point main path, requires
-   every output digit to be equal, and times both with CUDA events.
-4. Drives `compute_msm` on the pinned 2^16 and 2^20 wire inputs
-   (regenerated from their seeds), requires the pinned results, and
-   requires every kernel's launch count to have moved. Prints the 2^20
-   call's wall time, cold and warm.
+3. Runs each of the seven kernels and its plain PyTorch version on the card
+   on seeded inputs at the shapes of the 2^20-point paths, requires every
+   output digit to be equal, and times both with CUDA events.
+4. Drives every path with the launch counts set to 0 just before and read
+   just after; each path names the kernels it must and must not launch:
+   - the wire `compute_msm` on the pinned 2^16 and 2^20 inputs (regenerated
+     from their seeds), cold and warm, with a profile of the warm call;
+   - the planes path: `compute_msm` on the same 2^20 points and scalars as
+     lists of `ExtPoint`s and ints (host marshalling timed apart);
+   - `device_affine`: the 2^20 wire call with the affine finish on the card;
+   - the fixed-base plan: `MSMPlan` once, then `msm_batch` of three 2^20
+     scalar jobs, against the pinned result and the wire path's;
+   - `compute_msm_batch` at 2^16 with one shared point array (the plan
+     branch) and with distinct arrays (the batched wire path);
+   - the A/B path of the tensor-core scan: the CIOS scan and the
+     tensor-core scan at the production shape, in turns, required equal.
+   Every result must be the pinned one or, where none is pinned, the wire
+   path's on the same inputs.
 5. Prints the kernel table as one JSON line, then the result line.
 
 Any failure raises, and the script exits non-zero. It imports nothing of
@@ -36,8 +47,9 @@ OPS_PER_S = 67e12
 # 32-bit multiplies in one 8-limb CIOS Montgomery product (a*b: 64,
 # m*p: 64, m: 8), two operations (low and high word) each.
 OPS_PER_MONT_MUL = 2 * (64 + 64 + 8)
-REPLACES = "webgpu_msm_tpu/ops/pallas/padd_kernels.py:{}"
-SOURCE = "webgpu_msm_tpu_torch/ops/kernels/csrc/padd_kernels.cu"
+PALLAS = "webgpu_msm_tpu/ops/pallas/"
+CSRC = "webgpu_msm_tpu_torch/ops/kernels/csrc/"
+WIRE_KERNELS = ("to_niels_xy", "accumulate_scan", "padd_masked", "padd", "grouped_running_sum")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -95,9 +107,12 @@ def kernel_inputs(gen: torch.Generator, dev, M=1 << 18, K=20, C=2048, L=128, B=4
     packed = niels[:, 0::2] | (niels[:, 1::2] << 16)
     as_i32 = lambda t: torch.where(t >= 1 << 31, t - (1 << 32), t).to(torch.int32)
     pts = lambda lead, width: field_planes(gen, lead, width).to(dev)
+    scan = (as_i32(packed).contiguous().to(dev), as_i32(ids).to(dev))
     return {
         "to_niels_xy": (pts((2,), M),),
-        "accumulate_scan": (as_i32(packed).contiguous().to(dev), as_i32(ids).to(dev)),
+        "to_niels": (pts((3,), M),),
+        "accumulate_scan": scan,
+        "accumulate_scan_mma": scan,
         "padd_masked": (
             pts((4,), W), pts((4,), W),
             torch.randint(0, 2, (W,), generator=gen, dtype=torch.int32).to(dev),
@@ -115,7 +130,10 @@ def bound(name: str, args) -> tuple[float, str]:
         M = args[0].shape[-1]
         nbytes += 3 * 16 * M * 4
         muls = 4 * M
-    elif name == "accumulate_scan":
+    elif name == "to_niels":
+        nbytes += args[0].numel() * 4
+        muls = 3 * args[0].shape[-1]
+    elif name in ("accumulate_scan", "accumulate_scan_mma"):  # the same work
         _, _, L, W = args[0].shape
         nbytes += (64 * L * W + 64 * W + W) * 4
         muls = 7 * L * W
@@ -134,9 +152,10 @@ def bound(name: str, args) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def profile_call(fn, warm_ms: float, top: int = 12) -> None:
+def profile_call(label: str, fn, warm_ms: float, top: int = 12) -> None:
     """Where one warm 2^20 call's device time goes: the busiest device ops,
-    and the device's busy share of the unprofiled warm wall time."""
+    the number of device launches, and the device's busy share of the
+    unprofiled warm wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -147,20 +166,35 @@ def profile_call(fn, warm_ms: float, top: int = 12) -> None:
     # Kernels only: an aten op's row repeats the device time of its kernels.
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     if not events:
-        print("profile 2^20: the profiler recorded no device kernels")
+        print(f"profile {label}: the profiler recorded no device kernels")
         return
     busy_ms = sum(dev_us(e) for e in events) / 1e3
-    print(f"profile 2^20: device busy {busy_ms:.1f} ms of a {warm_ms:.1f} ms warm call "
-          f"(idle share {1 - busy_ms / warm_ms:.3f})")
+    print(f"profile {label}: device busy {busy_ms:.1f} ms of a {warm_ms:.1f} ms warm call "
+          f"(idle share {1 - busy_ms / warm_ms:.3f}), {sum(e.count for e in events)} device launches")
     for e in sorted(events, key=dev_us, reverse=True)[:top]:
-        print(f"profile 2^20:   {dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+        print(f"profile {label}:   {dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+
+
+def drive(label: str, pk, fn, must: tuple, must_not: tuple):
+    """One path: launch counts set to 0, the path driven once and
+    synchronized, counts read. Returns (result, wall ms, counts); fails
+    unless every kernel in `must` was launched and none in `must_not`."""
+    pk.reset_launch_counts()
+    out, ms = once_ms(fn)
+    counts = dict(pk.launches)
+    for kname in must:
+        check(counts[kname] > 0, f"{label}: kernel {kname} was not launched")
+    for kname in must_not:
+        check(counts[kname] == 0, f"{label}: kernel {kname} was launched {counts[kname]} times")
+    return out, ms, counts
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
-    from webgpu_msm_tpu_torch import MSMConfig, compute_msm
+    from webgpu_msm_tpu_torch import MSMConfig, MSMPlan, compute_msm, compute_msm_batch
+    from webgpu_msm_tpu_torch.engines import gpu_engine
     from webgpu_msm_tpu_torch.ops.kernels import build
     from webgpu_msm_tpu_torch.ops.kernels import padd_kernels as pk
     from webgpu_msm_tpu_torch.oracle.pinned_vectors import PINNED
@@ -186,20 +220,29 @@ def main() -> int:
     # 3. each kernel against its plain version at the main path's shapes
     gen = torch.Generator().manual_seed(20)
     inputs = kernel_inputs(gen, dev)
+    scan_mma = lambda p, i: pk.accumulate_scan(p, i, use_mma=True)
+    scan_mma_plain = lambda p, i: pk.accumulate_scan_plain(p, i, use_mma=True)
+    padd_py, padd_cu, mma_cu = PALLAS + "padd_kernels.py:{}", CSRC + "padd_kernels.cu", CSRC + "mma_kernels.cu"
+    # name -> (wrapper, plain version, TPU kernel, source, timed launches)
     kernels = {
-        "to_niels_xy": (pk.to_niels_xy, pk.to_niels_xy_plain, 498, 20),
-        "accumulate_scan": (pk.accumulate_scan, pk.accumulate_scan_plain, 258, 3),
-        "padd_masked": (pk.padd_masked, pk.padd_masked_plain, 158, 20),
-        "padd": (pk.padd, pk.padd_plain, 141, 20),
-        "grouped_running_sum": (pk.grouped_running_sum, pk.grouped_running_sum_plain, 391, 10),
+        "to_niels_xy": (pk.to_niels_xy, pk.to_niels_xy_plain, padd_py.format(498), padd_cu, 20),
+        "accumulate_scan": (pk.accumulate_scan, pk.accumulate_scan_plain, padd_py.format(258), padd_cu, 3),
+        "padd_masked": (pk.padd_masked, pk.padd_masked_plain, padd_py.format(158), padd_cu, 20),
+        "padd": (pk.padd, pk.padd_plain, padd_py.format(141), padd_cu, 20),
+        "grouped_running_sum": (pk.grouped_running_sum, pk.grouped_running_sum_plain,
+                                padd_py.format(391), padd_cu, 10),
+        "to_niels": (pk.to_niels, pk.to_niels_plain, padd_py.format(493), padd_cu, 20),
+        "accumulate_scan_mma": (scan_mma, scan_mma_plain, PALLAS + "field_kernels_mxu.py:125",
+                                mma_cu, 3),
     }
+    check(tuple(kernels) == pk.KERNELS, "the kernel table does not list the package's kernels")
     # Load each plain version's torch kernels once at a small shape, so its
     # timed call below does not pay for that.
     for kname, small in kernel_inputs(torch.Generator().manual_seed(0), dev, M=64, K=2, C=4,
                                       L=4, B=64, Gs=32).items():
         kernels[kname.split(" ")[0]][1](*small)
     rows = {}
-    for kname, (kern, plain, line, reps) in kernels.items():
+    for kname, (kern, plain, replaces, source, reps) in kernels.items():
         args = inputs[kname]
         got, _ = once_ms(lambda: kern(*args))
         want, plain_ms = once_ms(lambda: plain(*args))
@@ -212,8 +255,8 @@ def main() -> int:
         ms = cuda_ms(lambda: kern(*args), reps)
         bound_ms, bound_by = bound(kname, args)
         rows[kname] = {
-            "name": kname, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES.format(line), "launches": None, "max_abs_err": err,
+            "name": kname, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": None, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None,
         }
@@ -221,32 +264,127 @@ def main() -> int:
               f"{ms:.4f} ms (plain {plain_ms:.1f} ms, bound {bound_ms:.4f} ms by {bound_by}) "
               f"[{smi}]")
         torch.cuda.empty_cache()
+    scan_args = inputs["accumulate_scan"]
     del inputs
 
-    # 4. the main path: compute_msm on the pinned inputs
+    # 4. the paths. Each is driven with the counts set to 0 just before and
+    # read just after; launches made above do not count.
     cfg = MSMConfig()
+    others = lambda *names: tuple(k for k in pk.KERNELS if k not in names)
+    as_xy = lambda res: (res.x, res.y)
+    inputs = {}
     for power in (16, 20):
         t0 = time.perf_counter()
         n = 1 << power
-        pts = fixtures.wire_points(fixtures.distinct_points_fast(n, seed=power))
-        sc = convert.bigints_to_u32_be(fixtures.random_scalars(n, seed=1000 + power))
+        points = fixtures.distinct_points_fast(n, seed=power)
+        scalars = fixtures.random_scalars(n, seed=1000 + power)
+        inputs[power] = (points, scalars, fixtures.wire_points(points),
+                         convert.bigints_to_u32_be(scalars))
         print(f"inputs 2^{power}: regenerated in {time.perf_counter() - t0:.1f} s (host)")
-        pk.reset_launch_counts()
-        res, cold_ms = once_ms(lambda: compute_msm(pts, sc, config=cfg, device=dev))
-        counts = dict(pk.launches)
-        check((res.x, res.y) == PINNED[power], f"2^{power}: result differs from PINNED")
-        for kname in pk.KERNELS:
-            check(counts[kname] > 0, f"2^{power}: kernel {kname} was not launched")
+    points, scalars, pts, sc = inputs[20]
+    N = len(points)
+    rate = lambda ms: f"{N / ms * 1e3:.0f} points/s"
+
+    # 4a. the wire path
+    for power in (16, 20):
+        _, _, pw, sw = inputs[power]
+        wire = lambda: compute_msm(pw, sw, config=cfg, device=dev)
+        res, cold_ms, counts = drive(f"wire 2^{power}", pk, wire, WIRE_KERNELS, others(*WIRE_KERNELS))
+        check(as_xy(res) == PINNED[power], f"2^{power}: result differs from PINNED")
         print(f"compute_msm 2^{power}: equals PINNED[{power}]; launches {counts}")
         if power == 20:
-            for kname in pk.KERNELS:
+            for kname in WIRE_KERNELS:
                 rows[kname]["launches"] = counts[kname]
-            res, warm_ms = once_ms(lambda: compute_msm(pts, sc, config=cfg, device=dev))
-            check((res.x, res.y) == PINNED[power], "2^20 warm call differs from PINNED")
-            print(f"compute_msm 2^20 wall: cold {cold_ms / 1e3:.3f} s "
-                  f"({n / cold_ms * 1e3:.0f} points/s), warm {warm_ms / 1e3:.3f} s "
-                  f"({n / warm_ms * 1e3:.0f} points/s) [{smi}]")
-            profile_call(lambda: compute_msm(pts, sc, config=cfg, device=dev), warm_ms)
+            res, warm_ms = once_ms(wire)
+            check(as_xy(res) == PINNED[power], "2^20 warm call differs from PINNED")
+            print(f"compute_msm 2^20 wall: cold {cold_ms / 1e3:.3f} s ({rate(cold_ms)}), "
+                  f"warm {warm_ms / 1e3:.3f} s ({rate(warm_ms)}) [{smi}]")
+            profile_call("wire 2^20", wire, warm_ms)
+
+    # 4b. the planes path: the same input as lists of ExtPoints and ints
+    t0 = time.perf_counter()
+    gpu_engine.marshal_points(points, N)
+    gpu_engine.marshal_scalars(scalars, N)
+    marshal_s = time.perf_counter() - t0
+    planes_kernels = ("to_niels",) + WIRE_KERNELS[1:]
+    res, ms, counts = drive("planes 2^20", pk, lambda: compute_msm(points, scalars, config=cfg, device=dev),
+                            planes_kernels, others(*planes_kernels))
+    check(as_xy(res) == PINNED[20], "planes path 2^20: result differs from PINNED")
+    rows["to_niels"]["launches"] = counts["to_niels"]
+    print(f"planes path 2^20: equals PINNED[20]; launches {counts}")
+    print(f"planes path 2^20 wall: {ms / 1e3:.3f} s ({rate(ms)}), of which host marshalling of "
+          f"the lists about {marshal_s:.3f} s (timed apart) [{smi}]")
+
+    # 4c. device_affine: the wire call with the affine finish on the card
+    affine = lambda: compute_msm(pts, sc, config=MSMConfig(device_affine=True), device=dev)
+    res, cold_ms, counts = drive("device_affine 2^20", pk, affine, WIRE_KERNELS, others(*WIRE_KERNELS))
+    check(as_xy(res) == PINNED[20], "device_affine 2^20: result differs from PINNED")
+    res, warm_ms = once_ms(affine)
+    check(as_xy(res) == PINNED[20], "device_affine 2^20 warm call differs from PINNED")
+    print(f"device_affine 2^20: equals PINNED[20]; launches {counts}")
+    print(f"device_affine 2^20 wall: cold {cold_ms / 1e3:.3f} s ({rate(cold_ms)}), "
+          f"warm {warm_ms / 1e3:.3f} s ({rate(warm_ms)}) [{smi}]")
+    profile_call("device_affine 2^20", affine, warm_ms, top=4)
+
+    # 4d. the fixed-base plan: bases once, then three scalar jobs
+    jobs = [sc] + [convert.bigints_to_u32_be(fixtures.random_scalars(N, seed=seed))
+                   for seed in (2020, 3020)]
+    want = [PINNED[20]] + [as_xy(compute_msm(pts, s, config=cfg, device=dev)) for s in jobs[1:]]
+    plan, build_ms, counts = drive("plan build 2^20", pk, lambda: MSMPlan(pts, config=cfg, device=dev),
+                                   ("to_niels_xy",), others("to_niels_xy"))
+    _, n_chunks, chunk_len = cfg.resolved_wire_plan(N)
+    n_batches = -(-N // (n_chunks * chunk_len))
+    check(counts["to_niels_xy"] == n_batches,
+          f"plan build: to_niels_xy launched {counts['to_niels_xy']} times for {n_batches} batches")
+    job_kernels = WIRE_KERNELS[1:]
+    got, batch_ms, counts = drive("plan jobs 2^20", pk, lambda: plan.msm_batch(jobs),
+                                  job_kernels, others(*job_kernels))
+    check([as_xy(r) for r in got] == want, "plan jobs: results differ from PINNED / the wire path")
+    res, one_ms = once_ms(lambda: plan.msm(jobs[1]))
+    check(as_xy(res) == want[1], "plan.msm: result differs from the wire path")
+    print(f"plan 2^20: job 0 equals PINNED[20], jobs 1 and 2 equal the wire path; "
+          f"launches of 3 jobs {counts}")
+    print(f"plan 2^20 wall: build {build_ms / 1e3:.3f} s; msm_batch of 3 jobs {batch_ms / 1e3:.3f} s "
+          f"({batch_ms / 3e3:.3f} s a job, {rate(batch_ms / 3)}); one msm {one_ms / 1e3:.3f} s [{smi}]")
+    profile_call("plan job 2^20", lambda: plan.msm(jobs[1]), one_ms, top=6)
+    del plan
+
+    # 4e. compute_msm_batch at 2^16: shared bases (the plan branch), then
+    # distinct arrays (the batched wire path)
+    _, _, pw, sw = inputs[16]
+    sw2 = convert.bigints_to_u32_be(fixtures.random_scalars(len(sw), seed=2016))
+    want = [PINNED[16], as_xy(compute_msm(pw, sw2, config=cfg, device=dev))]
+    for label, point_arrays, n_conversions in (("shared bases", [pw, pw], 1),
+                                               ("distinct arrays", [pw, pw.copy()], 2)):
+        got, ms, counts = drive(f"compute_msm_batch 2^16, {label}", pk,
+                                lambda: compute_msm_batch(point_arrays, [sw, sw2], config=cfg, device=dev),
+                                WIRE_KERNELS, others(*WIRE_KERNELS))
+        check([as_xy(r) for r in got] == want, f"compute_msm_batch ({label}): results differ")
+        check(counts["to_niels_xy"] == n_conversions,
+              f"compute_msm_batch ({label}): to_niels_xy launched {counts['to_niels_xy']} times")
+        print(f"compute_msm_batch 2^16, {label}: 2 jobs equal PINNED[16] / the wire path in "
+              f"{ms / 1e3:.3f} s; launches {counts} [{smi}]")
+
+    # 4f. the A/B path of the tensor-core scan: no compute_msm path selects
+    # it; its entry point is this comparison at the production shape, the
+    # CIOS scan and the tensor-core scan in turns, required equal.
+    def scan_ab():
+        times = {False: [], True: []}
+        outs = {}
+        for use_mma in (False, True, True, False):
+            times[use_mma].append(cuda_ms(lambda: pk.accumulate_scan(*scan_args, use_mma=use_mma), 3))
+            outs[use_mma] = pk.accumulate_scan(*scan_args, use_mma=use_mma)
+        check(max_abs_err(outs[False], outs[True]) == 0, "the tensor-core scan differs from the CIOS scan")
+        return times
+
+    ab_kernels = ("accumulate_scan", "accumulate_scan_mma")
+    times, _, counts = drive("scan A/B", pk, scan_ab, ab_kernels, others(*ab_kernels))
+    rows["accumulate_scan_mma"]["launches"] = counts["accumulate_scan_mma"]
+    print(f"scan A/B {tuple(scan_args[0].shape)}: tensor-core scan equals CIOS scan on all outputs; "
+          f"CIOS {min(times[False]):.4f} ms, tensor-core {min(times[True]):.4f} ms "
+          f"(runs {times[False]} / {times[True]}); launches {counts}; "
+          f"no compute_msm path launches accumulate_scan_mma [{smi}]")
+    del scan_args
 
     # 5. summary lines
     print("kernels: " + ", ".join(pk.KERNELS))

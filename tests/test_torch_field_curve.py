@@ -95,6 +95,28 @@ def test_mont_mul_unreduced_left_operand():
     assert got == [v * F.R % F.P for v in from_planes(a)]
 
 
+@pytest.mark.parametrize("e", [0, 1, 2, 0b1011011, F.P - 2], ids=["0", "1", "2", "91", "p-2"])
+def test_mont_pow_const_matches_jax_and_oracle(e):
+    """(a*R) -> (a^e)*R digit for digit; 0 maps to 0 for e > 0. JAX runs
+    its scan over the exponent bits as one compiled step."""
+    rng = np.random.default_rng(e % 1000)
+    vals = rand_elems(rng, 8)
+    a = to_planes([v * F.R % F.P for v in vals])
+    got = planes_to_numpy(field_ops.mont_pow_const(port(a), e))
+    np.testing.assert_array_equal(got, jax_np(jfield.mont_pow_const(jax_digits(a), e)))
+    assert from_planes(got) == [pow(v, e, F.P) * F.R % F.P for v in vals]
+
+
+def test_finv_mont_matches_jax_and_oracle():
+    rng = np.random.default_rng(17)
+    vals = rand_elems(rng, 8)  # ends in 0, 1, p - 1
+    a = to_planes([v * F.R % F.P for v in vals])
+    got = planes_to_numpy(field_ops.finv_mont(port(a)))
+    np.testing.assert_array_equal(got, jax_np(jfield.finv_mont(jax_digits(a))))
+    want = [F.finv(v) * F.R % F.P if v else 0 for v in vals]
+    assert from_planes(got) == want and want[-3] == 0
+
+
 def rand_points(rng, n):
     """[4, 16, n] uint32 Montgomery planes of random field elements (the
     formulas' digits do not depend on the points being on the curve)."""
@@ -109,7 +131,8 @@ def port_pts(st: np.ndarray):
     return curve_ops.PointVec.from_stacked(port(st))
 
 
-@pytest.mark.parametrize("name", ["add", "add_niels", "double", "select", "to_niels_from_xy"])
+@pytest.mark.parametrize("name", ["add", "add_niels", "double", "select", "to_niels_from_xy",
+                                  "to_niels_planes"])
 def test_curve_op_matches_jax(name):
     rng = np.random.default_rng(sum(map(ord, name)) + 1)
     p, q = rand_points(rng, N), rand_points(rng, N)
@@ -126,6 +149,9 @@ def test_curve_op_matches_jax(name):
         mask = rng.integers(0, 2, N).astype(bool)
         got = curve_ops.select(torch.from_numpy(mask), port_pts(p), port_pts(q)).stacked()
         want = jcurve.select(jnp.asarray(mask), jax_pts(p), jax_pts(q)).stacked()
+    elif name == "to_niels_planes":
+        got = curve_ops.to_niels_planes(port(p[:3]))
+        want = jcurve.to_niels_planes(jnp.asarray(p[:3]))
     else:
         got = curve_ops.to_niels_from_xy(port(p[0]), port(p[1]))
         want = jcurve.to_niels_from_xy(jnp.asarray(p[0]), jnp.asarray(p[1]))
@@ -158,8 +184,8 @@ def test_split_windows_matches_jax(w, signed):
 
 
 def test_cuda_constants_match_oracle():
-    """The limb constants written into field.cuh are p, R, R^2, 2d*R and
-    -p^-1 mod 2^32."""
+    """The limb constants written into field.cuh are p, R, R^2, 2d*R,
+    2d*R^2 and -p^-1 mod 2^32, and there are no others."""
     src = (Path(__file__).resolve().parents[1]
            / "webgpu_msm_tpu_torch/ops/kernels/csrc/field.cuh").read_text()
 
@@ -172,5 +198,8 @@ def test_cuda_constants_match_oracle():
     assert limbs_of("R_L") == F.R_MOD_P
     assert limbs_of("R2_L") == F.R2_MOD_P
     assert limbs_of("TWO_D_R_L") == 2 * F.EDWARDS_D * F.R % F.P
+    assert limbs_of("TWO_D_R2_L") == 2 * F.EDWARDS_D * F.R2_MOD_P % F.P
+    assert set(re.findall(r"__constant__ u32 (\w+)\[8\]", src)) == {
+        "P_L", "R_L", "R2_L", "TWO_D_R_L", "TWO_D_R2_L"}
     n0 = int(re.search(r"constexpr u32 N0 = (0x[0-9a-f]+)u;", src).group(1), 16)
     assert n0 == F.N0_INV_32

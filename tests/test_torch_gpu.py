@@ -1,5 +1,6 @@
 """The port on the card: each CUDA kernel against its plain version, and
-`compute_msm` against the port's own oracle.
+`compute_msm` (wire rows and lists) and `MSMPlan` against the port's own
+oracle.
 
 Every test here is marked `gpu` and skips without a CUDA device. The file
 imports no JAX, because the GPU machine has none; run it there with
@@ -12,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from webgpu_msm_tpu_torch import MSMConfig, compute_msm
+from webgpu_msm_tpu_torch import MSMConfig, MSMPlan, compute_msm
 from webgpu_msm_tpu_torch.ops.kernels import padd_kernels as pk
 from webgpu_msm_tpu_torch.oracle import curve, msm
 from webgpu_msm_tpu_torch.utils import convert, fixtures
@@ -39,7 +40,9 @@ def _inputs(name, rng, dev, width=300):
     t = lambda arr: planes_from_numpy(arr, dev)
     if name == "to_niels_xy":
         return (t(rand_planes(rng, (2,), width)),)
-    if name == "accumulate_scan":
+    if name == "to_niels":
+        return (t(rand_planes(rng, (3,), width)),)
+    if name in ("accumulate_scan", "accumulate_scan_mma"):
         L = 12
         ids = np.sort(rng.integers(0, 40, size=(width, L)), axis=1).T.astype(np.uint32)
         ids |= rng.integers(0, 2, size=(L, width)).astype(np.uint32) << 31
@@ -53,14 +56,24 @@ def _inputs(name, rng, dev, width=300):
     return (t(rand_planes(rng, (5, 4), width)),)
 
 
+def _kernel_and_plain(name):
+    if name == "accumulate_scan_mma":
+        return (lambda p, i: pk.accumulate_scan(p, i, use_mma=True),
+                lambda p, i: pk.accumulate_scan_plain(p, i, use_mma=True))
+    return getattr(pk, name), getattr(pk, name + "_plain")
+
+
 @pytest.mark.parametrize("name", pk.KERNELS)
 def test_kernel_matches_plain_on_card(cuda, name):
+    """Every kernel at a ragged width (300 lanes: the last warp is partly
+    beyond the width) against its plain version on the same tensors."""
     args = _inputs(name, np.random.default_rng(10), cuda)
-    before = pk.launches[name]
-    got = getattr(pk, name)(*args)
+    kernel, plain = _kernel_and_plain(name)
+    before = dict(pk.launches)
+    got = kernel(*args)
     torch.cuda.synchronize()
-    assert pk.launches[name] == before + 1
-    want = getattr(pk, name + "_plain")(*args)
+    assert pk.launches == {**before, name: before[name] + 1}
+    want = plain(*args)
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     for g, w in zip(got, want):
@@ -77,4 +90,35 @@ def test_compute_msm_on_card_matches_oracle(cuda):
         config=MSMConfig(window_size=8, n_chunks=4, chunk_len=4), device=cuda,
     )
     assert (got.x, got.y) == want
-    assert all(pk.launches[name] > 0 for name in pk.KERNELS), pk.launches
+    assert all(pk.launches[name] > 0 for name in pk.KERNELS[:5]), pk.launches
+    assert pk.launches["to_niels"] == pk.launches["accumulate_scan_mma"] == 0
+
+
+def test_tensor_core_scan_equals_cios_scan_on_card(cuda):
+    args = _inputs("accumulate_scan", np.random.default_rng(11), cuda, width=2049)
+    for a, b in zip(pk.accumulate_scan(*args), pk.accumulate_scan(*args, use_mma=True)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("device_affine", [False, True])
+def test_list_input_on_card_matches_oracle(cuda, device_affine):
+    """Lists take the planes path: `to_niels`, never `to_niels_xy`."""
+    pts = fixtures.distinct_points_fast(48, seed=53)
+    scalars = fixtures.random_scalars(48, seed=54)
+    pk.reset_launch_counts()
+    got = compute_msm(pts, scalars, device=cuda, config=MSMConfig(
+        window_size=8, n_chunks=4, chunk_len=4, device_affine=device_affine))
+    assert (got.x, got.y) == curve.to_affine(msm.msm(pts, scalars, 8))
+    assert pk.launches["to_niels"] == 3 and pk.launches["to_niels_xy"] == 0
+
+
+def test_msm_plan_on_card_matches_oracle(cuda):
+    pts = fixtures.distinct_points_fast(48, seed=55)
+    jobs = [fixtures.random_scalars(48, seed=56 + j) for j in range(2)]
+    pk.reset_launch_counts()
+    plan = MSMPlan(fixtures.wire_points(pts), device=cuda,
+                   config=MSMConfig(window_size=8, n_chunks=4, chunk_len=4))
+    assert pk.launches["to_niels_xy"] == 3
+    got = plan.msm_batch([convert.bigints_to_u32_be(jobs[0]), jobs[1]])
+    assert [(r.x, r.y) for r in got] == [curve.to_affine(msm.msm(pts, sc, 8)) for sc in jobs]
+    assert pk.launches["to_niels_xy"] == 3 and pk.launches["accumulate_scan"] == 6

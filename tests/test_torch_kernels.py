@@ -1,10 +1,13 @@
-"""The five point kernels' plain versions against the JAX package, their
-wrappers' routing, and the kernel build helpers.
+"""The point kernels' plain versions against the JAX package, their
+wrappers' routing, and the kernel build helpers (the matrix-form scan is in
+tests/test_torch_mma.py).
 
 On the CPU a wrapper runs its kernel's plain version; the CUDA kernels
 themselves are held against the same plain versions on the card by
 tests/test_torch_gpu.py.
 """
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -41,6 +44,22 @@ def test_to_niels_xy_plain_matches_jax():
     got = pk.to_niels_xy(planes_from_numpy(xy))
     want = jcurve.to_niels_from_xy(jnp.asarray(xy[0]), jnp.asarray(xy[1]))
     np.testing.assert_array_equal(planes_to_numpy(got), np.asarray(want))
+
+
+def test_to_niels_plain_matches_jax():
+    """Plain (x, y, t) below p, with 0 and p - 1 among them, against the
+    JAX package's `to_niels_planes` and the oracle."""
+    rng = np.random.default_rng(4)
+    pts = rand_planes(rng, (3,), W)
+    pts[:, :, 0] = 0
+    pts[:, :, 1] = np.array([(F.P - 1 >> (16 * k)) & 0xFFFF for k in range(16)], np.uint32)
+    got = planes_to_numpy(pk.to_niels(planes_from_numpy(pts)))
+    np.testing.assert_array_equal(got, np.asarray(jcurve.to_niels_planes(jnp.asarray(pts))))
+    assert got.shape == (3, 16, W) and pk.to_niels_plain(planes_from_numpy(pts)).dtype == torch.int32
+    for i in (1, 5):
+        x, y, t = (_ints(pts[c], i) for c in range(3))
+        assert [_ints(got[c], i) for c in range(3)] == [
+            (y - x) * F.R % F.P, (y + x) * F.R % F.P, 2 * F.EDWARDS_D * t * F.R % F.P]
 
 
 def test_padd_plain_matches_jax():
@@ -159,6 +178,31 @@ def test_wrappers_reject_bad_tensors(bad):
         a, b, exc = a.to("meta"), b.to("meta"), ValueError
     with pytest.raises(exc):
         pk.padd(a, b)
+
+
+def test_every_kernel_has_a_count_and_a_plain_version():
+    assert pk.KERNELS == ("to_niels_xy", "accumulate_scan", "padd_masked", "padd",
+                          "grouped_running_sum", "to_niels", "accumulate_scan_mma")
+    assert set(pk.launches) == set(pk.KERNELS)
+    for name in pk.KERNELS[:6]:
+        assert callable(getattr(pk, name)) and callable(getattr(pk, name + "_plain"))
+
+
+def test_signatures_cover_every_c_entry_point():
+    """No compiler runs on the CPU host, so the ctypes table is held
+    against the sources: every `launch_*` entry point, with one ctypes
+    argument per C parameter, pointers as void pointers and sizes as ints."""
+    found = {}
+    for cu in sorted(build.CSRC.glob("*.cu")):
+        for name, params in re.findall(r'extern "C" int (launch_\w+)\(([^)]*)\)', cu.read_text()):
+            found[name] = tuple(
+                build._I if prm.split()[0] == "int" else build._P for prm in params.split(",")
+            )
+    assert found == build.SIGNATURES
+    kernels = {m for cu in build.CSRC.glob("*.cu")
+               for m in re.findall(r"__global__ void\s+(?:__launch_bounds__\(\w+\)\s+)?(\w+)\(",
+                                   cu.read_text())}
+    assert kernels == {name + "_kernel" for name in pk.KERNELS}
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -70,8 +70,8 @@ def test_compute_msm_several_batches(case, cfg):
 
 
 def test_list_inputs_and_z_not_one(case):
-    """Lists are marshalled into z == 1 wire rows; wire rows with z != 1
-    are normalized on the host first."""
+    """Lists, and wire rows with z != 1, take the planes path, where the
+    host normalizes z."""
     pts, scalars, pw, sw, want = case
     got = tm.compute_msm(pts[:37], scalars[:37], config=CFG, device="cpu")
     assert (got.x, got.y) == joc.to_affine(jmsm.msm(pts[:37], scalars[:37], 8))
@@ -91,7 +91,10 @@ def test_input_checks(case):
         tm.compute_msm(pw, sw[:-1], device="cpu")
     with pytest.raises(ValueError, match="u32"):
         tm.compute_msm(pw.astype(np.uint64) + (1 << 32), sw, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    as_dict = {c: pw[:2, 8 * i : 8 * i + 8] for i, c in enumerate("xytz")}
+    assert tm.compute_msm(as_dict, [3, 0], config=CFG, device="cpu") == \
+        tm.compute_msm(pw[:1], np.array([[0] * 7 + [3]], dtype=np.uint32), config=CFG, device="cpu")
+    with pytest.raises(KeyError):
         tm.compute_msm({"x": pw[:, :8]}, sw, device="cpu")
     for engine in ("oracle", "cpu", "naive", "baseline", "hybrid", "tpu"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -147,6 +150,13 @@ def test_wire_plan_matches_jax(n, signed):
         jconfig.MSMConfig(signed_digits=signed).resolved_wire_plan(n)
 
 
+def test_config_fields_keep_the_jax_defaults():
+    ours, theirs = MSMConfig(), jconfig.MSMConfig()
+    for name in ("window_size", "n_chunks", "chunk_len", "signed_digits", "device_affine"):
+        assert getattr(ours, name) == getattr(theirs, name), name
+    assert ours.device_affine is False
+
+
 def test_port_imports_no_jax():
     """The package and chip_smoke.py import neither jax nor any module of
     the JAX package."""
@@ -154,6 +164,9 @@ def test_port_imports_no_jax():
         "import sys, webgpu_msm_tpu_torch, chip_smoke\n"
         "import webgpu_msm_tpu_torch.engines.gpu_engine, webgpu_msm_tpu_torch.ops.kernels.build\n"
         "import webgpu_msm_tpu_torch.utils.interop, webgpu_msm_tpu_torch.utils.fixtures\n"
+        "import webgpu_msm_tpu_torch.ops.kernels.field_kernels_mma, webgpu_msm_tpu_torch.ops.kernels.padd_kernels\n"
+        "import webgpu_msm_tpu_torch.api, webgpu_msm_tpu_torch.ops.pippenger\n"
+        "assert {'MSMPlan', 'compute_msm_batch'} <= set(dir(webgpu_msm_tpu_torch))\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'webgpu_msm_tpu.'))"
         " or m == 'webgpu_msm_tpu']\n"
         "assert not bad, bad\n"

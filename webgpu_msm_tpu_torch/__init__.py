@@ -1,4 +1,4 @@
-"""tpu-msm's PyTorch/CUDA port: the wire-format MSM on an NVIDIA H100.
+"""tpu-msm's PyTorch/CUDA port: the MSM on an NVIDIA H100.
 
 A second package beside the JAX package `webgpu_msm_tpu`, which stays the
 reference. It imports torch and numpy only. The point kernels are written
@@ -6,9 +6,11 @@ by hand in CUDA C++ for sm_90a (`ops/kernels/csrc`), built with nvcc at
 first use; on the CPU each kernel's plain PyTorch version runs instead.
 
     compute_msm(points, scalars, device=None) -> AffinePoint(x, y)
+    compute_msm_batch(points_list, scalars_list, device=None) -> [AffinePoint]
+    MSMPlan(points, device=None).msm(scalars) / .msm_batch(scalars_list)
 """
 
 __version__ = "0.1.0"
 
-from .api import AffinePoint, compute_msm  # noqa: F401
+from .api import AffinePoint, MSMPlan, compute_msm, compute_msm_batch  # noqa: F401
 from .config import MSMConfig  # noqa: F401

@@ -1,25 +1,31 @@
-"""Public API: `compute_msm`, the port's counterpart of the JAX package's.
+"""Public API: `compute_msm`, `compute_msm_batch` and `MSMPlan`, the port's
+counterparts of the JAX package's.
 
 Accepted inputs:
-- points: a numpy [n, 32] array of big-endian u32 words (x||y||t||z), or
-  a list of `ExtPoint`s, (x, y) or (x, y, t, z) int tuples;
-- scalars: a numpy [n, 8] big-endian u32 array, or a list of ints.
+- points: a numpy [n, 32] array of big-endian u32 words (x||y||t||z); a
+  dict with keys x/y/t/z of [n, 8] big-endian u32 arrays; or a list of
+  `ExtPoint`s, (x, y) or (x, y, t, z) int tuples, or per-point dicts;
+- scalars: a numpy [n, 8] big-endian u32 array, or a list of ints or of
+  [8] big-endian u32 arrays.
 
-Everything runs through the wire path of `engines/gpu_engine.py`: lists,
-and wire rows with z != 1, are first marshalled on the host into z == 1
-wire rows. The computation runs on `device`: the GPU when none is given
-(an error without one), the plain PyTorch path only for device="cpu".
+Routing follows the JAX `compute_msm`: two numpy arrays that meet the wire
+path's preconditions (whole rows, z == 1) take the wire path of
+`engines/gpu_engine.py`; everything else is normalized to `ExtPoint`s and
+ints and takes the planes path. The computation runs on `device`: the GPU
+when none is given (an error without one), the plain PyTorch path only
+for device="cpu". Only the GPU engine is ported; the other engines of the
+JAX package raise `NotImplementedError`.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Any, Optional, Sequence
 
 import numpy as np
 
 from .config import MSMConfig
 from .engines import gpu_engine
-from .oracle import curve, field
+from .oracle import curve
 from .oracle.curve import ExtPoint
 from .utils import convert
 
@@ -30,53 +36,64 @@ class AffinePoint:
     y: int
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md Queue 1: {item})")
+def _check_engine(engine: Optional[str]) -> None:
+    if engine not in (None, "gpu"):
+        raise NotImplementedError(
+            f"engine {engine!r} is not ported yet (ROADMAP.md: modules still to port, "
+            "the other engines)"
+        )
 
 
-def _to_ext_points(points: Any) -> list[ExtPoint]:
+def _wire_points_ok(points: np.ndarray) -> bool:
+    """The wire path's preconditions on the point side: an integer array of
+    whole [n, 32] rows with z == 1."""
+    if not np.issubdtype(points.dtype, np.integer):
+        return False
+    if points.size == 0 or points.size % 32 != 0:
+        return False
+    z = convert.as_u32_array(points, "wire points").reshape(-1, 32)[:, 24:32]
+    return bool(np.all(z[:, :7] == 0) and np.all(z[:, 7] == 1))
+
+
+def _wire_fast_path_ok(points: np.ndarray, scalars: np.ndarray) -> bool:
+    """The wire path's preconditions, checked up front so that inside it
+    any error is a real fault. Integer arrays wider than u32 are
+    range-checked: a word of 2^32 or more raises instead of being cut."""
+    if scalars.size != points.size // 4:  # n*8 scalar words against n*32 point words
+        return False
+    if not _wire_points_ok(points):
+        return False
+    convert.as_u32_array(scalars, "wire scalars")
+    return True
+
+
+def _normalize_scalars(scalars: Any) -> list[int]:
+    if isinstance(scalars, np.ndarray):
+        return convert.u32_be_to_bigints(scalars)
+    return [
+        convert.u32_be_to_bigints(s.reshape(1, 8))[0] if isinstance(s, np.ndarray) else int(s)
+        for s in scalars
+    ]
+
+
+def _normalize_points(points: Any) -> list[ExtPoint]:
     if isinstance(points, np.ndarray):
         arr = convert.as_u32_array(points, "points").reshape(-1, 32)
-        words = [convert.be_rows_to_words_le(arr[:, 8 * c : 8 * c + 8]) for c in range(4)]
-        return [ExtPoint(*v) for v in zip(*(convert.words_le_to_bigints(w) for w in words))]
+        points = {c: arr[:, 8 * i : 8 * i + 8] for i, c in enumerate("xytz")}
+    if isinstance(points, dict):
+        return [ExtPoint(*v) for v in zip(*(convert.u32_be_to_bigints(points[c]) for c in "xytz"))]
     out = []
     for p in points:
         if isinstance(p, ExtPoint):
             out.append(p)
-        elif isinstance(p, (tuple, list)) and len(p) == 2:
+        elif isinstance(p, dict):
+            out.append(ExtPoint(int(p["x"]), int(p["y"]), int(p["t"]), int(p.get("z", 1))))
+        elif len(p) == 2:
             out.append(curve.from_affine(int(p[0]), int(p[1])))
-        elif isinstance(p, (tuple, list)) and len(p) == 4:
-            out.append(ExtPoint(*(int(v) for v in p)))
         else:
-            raise _not_ported(f"point input of type {type(p).__name__}", "other input forms")
+            x, y, t, z = (int(v) for v in p)
+            out.append(ExtPoint(x, y, t, z))
     return out
-
-
-def _marshal_points(points: list[ExtPoint]) -> np.ndarray:
-    """Extended points -> [n, 32] BE u32 wire rows with z == 1 (z != 1 is
-    normalized on the host)."""
-    xs, ys, ts = [], [], []
-    for p in points:
-        if p.z % field.P != 1:
-            zi = field.finv(p.z)
-            x, y = p.x * zi % field.P, p.y * zi % field.P
-            t = x * y % field.P
-        else:
-            x, y, t = p.x % field.P, p.y % field.P, p.t % field.P
-        xs.append(x)
-        ys.append(y)
-        ts.append(t)
-    rows = np.zeros((len(points), 32), dtype=np.uint32)
-    rows[:, 0:8] = convert.bigints_to_u32_be(xs)
-    rows[:, 8:16] = convert.bigints_to_u32_be(ys)
-    rows[:, 16:24] = convert.bigints_to_u32_be(ts)
-    rows[:, 31] = 1
-    return rows
-
-
-def _z_is_one(rows: np.ndarray) -> bool:
-    z = rows[:, 24:32]
-    return bool(np.all(z[:, :7] == 0) and np.all(z[:, 7] == 1))
 
 
 def compute_msm(
@@ -91,34 +108,125 @@ def compute_msm(
     device: a torch device ("cuda", "cuda:0", "cpu"); None means the GPU.
     engine: None or "gpu"; the JAX package's other engines are not ported.
     """
-    if engine not in (None, "gpu"):
-        raise _not_ported(f"engine {engine!r}", "other engines")
+    _check_engine(engine)
     config = config or MSMConfig()
     dev = gpu_engine.resolve_device(device)
 
-    if isinstance(points, np.ndarray):
-        rows = convert.as_u32_array(points, "wire points")
-        if rows.size % 32:
-            raise ValueError(f"wire points: {rows.size} words is not a whole number of rows")
-        rows = rows.reshape(-1, 32)
-        if not _z_is_one(rows):
-            rows = _marshal_points(_to_ext_points(rows))
-    elif isinstance(points, dict):
-        raise _not_ported("dict-of-arrays point input", "other input forms")
-    else:
-        rows = _marshal_points(_to_ext_points(points))
+    if (
+        isinstance(points, np.ndarray)
+        and isinstance(scalars, np.ndarray)
+        and _wire_fast_path_ok(points, scalars)
+    ):
+        return AffinePoint(*gpu_engine.msm_affine_wire(points, scalars, config, dev))
 
-    if isinstance(scalars, np.ndarray):
-        sc = convert.as_u32_array(scalars, "wire scalars")
-        if sc.size % 8:
-            raise ValueError(f"wire scalars: {sc.size} words is not a whole number of rows")
-        sc = sc.reshape(-1, 8)
-    else:
-        sc = convert.bigints_to_u32_be([int(s) for s in scalars])
-
-    if rows.shape[0] != sc.shape[0]:
-        raise ValueError(f"points/scalars length mismatch: {rows.shape[0]} vs {sc.shape[0]}")
-    if rows.shape[0] == 0:
+    pts = _normalize_points(points)
+    sc = _normalize_scalars(scalars)
+    if len(pts) != len(sc):
+        raise ValueError(f"points/scalars length mismatch: {len(pts)} vs {len(sc)}")
+    if not pts:
         return AffinePoint(0, 1)
-    x, y = gpu_engine.msm_affine_wire(rows, sc, config, dev)
-    return AffinePoint(x, y)
+    return AffinePoint(*gpu_engine.msm_affine(pts, sc, config, dev))
+
+
+def compute_msm_batch(
+    points_list: Sequence[Any],
+    scalars_list: Sequence[Any],
+    config: Optional[MSMConfig] = None,
+    device=None,
+    engine: Optional[str] = None,
+) -> list[AffinePoint]:
+    """Many MSMs, the prover's workload: every job's device work is queued
+    before any result is fetched, so the host's marshalling of one job
+    overlaps the device's work on the one before.
+
+    When every job is wire-format ([n, 32] / [n, 8] arrays, z == 1) the
+    batch runs on the wire path with no per-point Python conversion; when,
+    besides, every job passes the same point array object, the bases are
+    copied and converted once (a `WirePlan`) and each job streams only its
+    scalars. Otherwise each job is normalized and takes the planes path.
+    """
+    _check_engine(engine)
+    config = config or MSMConfig()
+    if len(points_list) != len(scalars_list):
+        raise ValueError(
+            f"points_list/scalars_list length mismatch: "
+            f"{len(points_list)} vs {len(scalars_list)}"
+        )
+    dev = gpu_engine.resolve_device(device)
+
+    if points_list and all(
+        isinstance(p, np.ndarray) and isinstance(s, np.ndarray) and _wire_fast_path_ok(p, s)
+        for p, s in zip(points_list, scalars_list)
+    ):
+        if len(points_list) > 1 and all(p is points_list[0] for p in points_list):
+            plan = gpu_engine.WirePlan(points_list[0], config, dev)
+            results = plan.msm_affine_batch(scalars_list)
+        else:
+            results = gpu_engine.msm_affine_batch_wire(
+                list(zip(points_list, scalars_list)), config, dev
+            )
+    else:
+        jobs = [
+            (_normalize_points(p), _normalize_scalars(s))
+            for p, s in zip(points_list, scalars_list)
+        ]
+        results = gpu_engine.msm_affine_batch(jobs, config, dev)
+    return [AffinePoint(x, y) for x, y in results]
+
+
+def _points_to_wire_rows(points: list[ExtPoint]) -> np.ndarray:
+    """Extended points -> [n, 32] BE u32 wire rows with z == 1."""
+    rows = np.zeros((len(points), 32), dtype=np.uint32)
+    for i, coord in enumerate(gpu_engine.affine_xyt(points)):
+        rows[:, 8 * i : 8 * i + 8] = convert.bigints_to_u32_be(coord)
+    rows[:, 31] = 1
+    return rows
+
+
+class MSMPlan:
+    """Fixed-base plan: `compute_msm` with the bases fixed.
+
+    A prover computes many MSMs against one structured reference string;
+    sending the point array again for every job is waste. A plan copies the
+    bases to the device and converts them to Montgomery Niels form once, at
+    construction; each `msm(scalars)` then streams only [n, 8] scalar rows.
+
+        plan = MSMPlan(points)                 # once per reference string
+        results = plan.msm_batch(scalar_jobs)  # scalars only
+
+    Points take the same forms as `compute_msm`; wire rows with z == 1 skip
+    all per-point conversion on the host. Only the GPU engine is ported:
+    another engine raises `NotImplementedError`.
+    """
+
+    def __init__(
+        self,
+        points: Any,
+        config: Optional[MSMConfig] = None,
+        device=None,
+        engine: Optional[str] = None,
+    ):
+        _check_engine(engine)
+        self.config = config or MSMConfig()
+        dev = gpu_engine.resolve_device(device)
+        if not (isinstance(points, np.ndarray) and _wire_points_ok(points)):
+            # one marshal on the host to wire rows, then the same plan
+            points = _points_to_wire_rows(_normalize_points(points))
+        self._plan = gpu_engine.WirePlan(points, self.config, dev)
+        self.n = self._plan.n
+
+    @staticmethod
+    def _scalars_wire(scalars: Any) -> np.ndarray:
+        if isinstance(scalars, np.ndarray):
+            return convert.as_u32_array(scalars, "wire scalars").reshape(-1, 8)
+        return convert.bigints_to_u32_be([int(s) for s in scalars])
+
+    def msm(self, scalars: Any) -> AffinePoint:
+        """One MSM against the planned bases."""
+        return AffinePoint(*self._plan.msm_affine(self._scalars_wire(scalars)))
+
+    def msm_batch(self, scalars_list: Sequence[Any]) -> list[AffinePoint]:
+        """Several jobs: all queued (scalar copies overlap the compute)
+        before any result is fetched."""
+        wire = [self._scalars_wire(s) for s in scalars_list]
+        return [AffinePoint(x, y) for x, y in self._plan.msm_affine_batch(wire)]

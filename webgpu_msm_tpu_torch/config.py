@@ -1,7 +1,7 @@
 """Typed configuration for the port's MSM engine.
 
 `MSMConfig` keeps the JAX package's field names and defaults for the knobs
-the wire path reads. `resolved_wire_plan` is that package's rule, copied
+the ported paths read. `resolved_wire_plan` is that package's rule, copied
 as it is: it was swept on a TPU v5e, and nothing here says it is best on
 an H100 — an H100 sweep of the rule is a later piece of work.
 """
@@ -26,6 +26,10 @@ class MSMConfig:
     # Signed (balanced) digits: bucket range 2^(w-1)+1 by negating points
     # on the fly. Needs scalars < 2^254; the engine checks and falls back.
     signed_digits: bool = True
+    # Convert the window sums to affine on the device (a batched Fermat
+    # inverse, `field_ops.finv_mont`) before the host combines them. Off by
+    # default: a capability of the reference, not a speed-up.
+    device_affine: bool = False
 
     def resolved_wire_plan(self, n_points: int) -> Tuple[int, int, int]:
         """(window, n_chunks, chunk_len) for host-fed wire inputs: batches

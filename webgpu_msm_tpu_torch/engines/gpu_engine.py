@@ -1,24 +1,40 @@
-"""GPU MSM engine for wire-format inputs: the counterpart of the JAX
-package's `engines/tpu_engine.py` (its wire path).
+"""GPU MSM engine: the counterpart of the JAX package's
+`engines/tpu_engine.py`.
 
-The host validates and pads the [n, 32] / [n, 8] big-endian u32 rows and
-copies each batch of x||y and scalar rows to the device, where one batch
-stage (`_wire_batch_impl`: BE unpack, `to_niels_xy`, window split,
-`_accumulate_batch`, carry add) adds its buckets into a device-resident
-bucket carry. One finish stage reduces the carry to window sums, and the
-host combines the windows. Every stage runs on `device`: the hand-written
-CUDA kernels on a GPU, their plain PyTorch versions on the CPU.
+Three ways in, one device pipeline:
+
+- the **wire path** (`msm_affine_wire`): [n, 32] / [n, 8] big-endian u32
+  rows; the host pads and copies x||y and scalar rows per batch, and the
+  device unpacks them and converts with the `to_niels_xy` kernel;
+- the **planes path** (`msm_affine`, `msm_affine_batch`): lists of points
+  and scalars, marshalled on the host into [3, 16, n] plain digit planes
+  and [8, n] scalar words, converted on the device with the `to_niels`
+  kernel;
+- the **fixed-base plan** (`WirePlan`): the bases' Niels planes stay on
+  the device and each job copies only its scalar rows.
+
+Each batch stage adds its buckets into a device-resident bucket carry; one
+finish stage reduces the carry to window sums (extended, or affine with
+`device_affine`), and the host combines the windows. Copies and kernels are
+queued on the current stream without waiting: the functions that return a
+device tensor ("dispatch") do not synchronize, and the batch entry points
+fetch results only after every job has been queued. Every stage runs on
+`device`: the hand-written CUDA kernels on a GPU, their plain PyTorch
+versions on the CPU.
 """
 from __future__ import annotations
+
+from typing import Sequence
 
 import numpy as np
 import torch
 
 from ..config import MSMConfig
 from ..oracle import curve as ocurve
+from ..oracle import field as ofield
 from ..oracle.curve import ExtPoint
 from ..oracle.msm import combine_windows
-from ..ops import field_ops, limbs, pippenger, windows
+from ..ops import field_ops, limbs, pippenger
 from ..ops.kernels import padd_kernels as pk
 from ..utils import convert
 
@@ -36,9 +52,19 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+# ---------------------------------------------------------------------------
+# Stages
+# ---------------------------------------------------------------------------
+
+
 def _be_cols_to_planes(cols: torch.Tensor) -> torch.Tensor:
     """[n, 8] big-endian u32 rows (int64) -> [16, n] LE digit planes."""
     return limbs.from_words_le(cols.flip(1).t())
+
+
+def _be_rows_to_words_le(rows_be: torch.Tensor) -> torch.Tensor:
+    """[n, 8] BE u32 rows (int32 bits) -> [8, n] LE words (int64)."""
+    return limbs.as_i64(rows_be).flip(1).t()
 
 
 def _wire_niels(xy_be: torch.Tensor) -> torch.Tensor:
@@ -48,23 +74,39 @@ def _wire_niels(xy_be: torch.Tensor) -> torch.Tensor:
     return pk.to_niels_xy(planes.to(torch.int32))
 
 
+_plan_niels_impl = _wire_niels  # the plan's resident bases: one call per batch
+
+
 def _identity_carry(window_size: int, signed_digits: bool, device) -> torch.Tensor:
     """[4, 16, K, B] int32 identity-point bucket carry."""
-    K = windows.n_windows(window_size)
-    B = pippenger.n_buckets(window_size, signed_digits)
-    return pippenger.identity_stacked((K, B), device)
+    return pippenger.identity_buckets(window_size, signed_digits, device)
 
 
-def _wire_batch_impl(xy_be, scalars_be, carry_st, *, window_size, n_chunks,
-                     chunk_len, signed_digits=False):
+def _batch_planes_impl(points_plain, scalar_words, carry_st, *, window_size, n_chunks,
+                       chunk_len, signed_digits=False):
+    """One planes batch: [3, 16, M] plain planes and [8, M] LE scalar words
+    (int32 bits) -> carry [4, 16, K, B] + this batch's bucket sums."""
+    bsums = pippenger.accumulate_batch(
+        pk.to_niels(points_plain), limbs.as_i64(scalar_words), window_size=window_size,
+        n_chunks=n_chunks, chunk_len=chunk_len, signed_digits=signed_digits,
+    )
+    return pippenger._vadd(carry_st, bsums)
+
+
+def _fixed_batch_impl(pts_niels, scalars_be, carry_st, *, window_size, n_chunks,
+                      chunk_len, signed_digits=False):
+    """One fixed-base batch: resident Niels points + this job's [M, 8] BE
+    scalar rows."""
+    bsums = pippenger.accumulate_buckets(
+        pts_niels, _be_rows_to_words_le(scalars_be), window_size=window_size,
+        n_chunks=n_chunks, chunk_len=chunk_len, signed_digits=signed_digits,
+    )
+    return pippenger._vadd(carry_st, bsums)
+
+
+def _wire_batch_impl(xy_be, scalars_be, carry_st, **static):
     """One wire batch: carry [4, 16, K, B] + this batch's bucket sums."""
-    pts_niels = _wire_niels(xy_be)
-    sw = limbs.as_i64(scalars_be).flip(1).t()  # [8, M] LE words
-    digits = pippenger.compute_digits(sw, window_size, signed_digits)
-    B = pippenger.n_buckets(window_size, signed_digits)
-    bsums = pippenger._accumulate_batch(pts_niels, digits, window_size, n_chunks, chunk_len, B)
-    shape = carry_st.shape
-    return pk.padd(carry_st.reshape(4, 16, -1), bsums.reshape(4, 16, -1)).reshape(shape)
+    return _fixed_batch_impl(_wire_niels(xy_be), scalars_be, carry_st, **static)
 
 
 def _finish_impl(carry_st: torch.Tensor) -> torch.Tensor:
@@ -73,17 +115,210 @@ def _finish_impl(carry_st: torch.Tensor) -> torch.Tensor:
     return torch.stack([field_ops.from_mont(wsums[i]) for i in range(4)])
 
 
+def _finish_affine_impl(carry_st: torch.Tensor) -> torch.Tensor:
+    """Bucket carry -> affine window sums [2, 16, K] int64, plain domain:
+    the z inverse runs on the device (`field_ops.finv_mont`)."""
+    wsums = pippenger.reduce_buckets(carry_st)
+    zi = field_ops.finv_mont(wsums[3])
+    return torch.stack([
+        field_ops.from_mont(field_ops.mont_mul(wsums[0], zi)),
+        field_ops.from_mont(field_ops.mont_mul(wsums[1], zi)),
+    ])
+
+
+def _call_finish(carry: torch.Tensor, device_affine: bool) -> torch.Tensor:
+    return _finish_affine_impl(carry) if device_affine else _finish_impl(carry)
+
+
+# ---------------------------------------------------------------------------
+# Host <-> device
+# ---------------------------------------------------------------------------
+
+
+def _host_tensor(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A contiguous u32 array as an int32 host tensor, pinned for a GPU so
+    that its copies to the device do not block the host."""
+    t = torch.from_numpy(np.ascontiguousarray(arr, dtype=np.uint32).view(np.int32))
+    return t.pin_memory() if device.type == "cuda" else t
+
+
 def window_sums_to_points(wsums: np.ndarray) -> list[ExtPoint]:
-    """[4, 16, K] window-sum digit planes (plain domain) -> K ExtPoints."""
+    """Window-sum digit planes (plain domain) -> K ExtPoints. Takes both
+    finish layouts: [4, 16, K] extended (x, y, t, z), and [2, 16, K] affine
+    (x, y with z == 1; t = x*y is recomputed here, K bigint products)."""
     coords = []
-    for c in range(4):
+    for c in range(wsums.shape[0]):
         words = (wsums[c, 0::2] | (wsums[c, 1::2] << 16)).astype(np.uint32)
         coords.append(convert.words_le_to_bigints(words))
-    return [ExtPoint(*xyzt) for xyzt in zip(*coords)]
+    if len(coords) == 2:
+        return [ExtPoint(x, y, x * y % ofield.P, 1) for x, y in zip(*coords)]
+    return [ExtPoint(*xytz) for xytz in zip(*coords)]
+
+
+def _fetch_affine(out: torch.Tensor, w: int) -> tuple[int, int]:
+    """Fetch one job's window sums (this waits for the device), combine the
+    windows on the host and return the affine result."""
+    wsums = window_sums_to_points(out.cpu().numpy())
+    return ocurve.to_affine(combine_windows(wsums, w))
+
+
+def _padded_plan(config: MSMConfig, n: int) -> tuple[int, int, int, int]:
+    """(w, C, L, pad_to) for n host-fed points: whole batches of C * L."""
+    w, C, L = config.resolved_wire_plan(n)
+    batch = C * L
+    return w, C, L, -(-n // batch) * batch
+
+
+# ---------------------------------------------------------------------------
+# The planes path
+# ---------------------------------------------------------------------------
+
+
+def affine_xyt(points: Sequence[ExtPoint]) -> tuple[list[int], list[int], list[int]]:
+    """Extended points -> their affine x, y and t = x*y below p; points
+    with z != 1 are normalized here, on the host."""
+    xs, ys, ts = [], [], []
+    for p in points:
+        if p.z != 1:
+            zi = ofield.finv(p.z)
+            x, y = p.x * zi % ofield.P, p.y * zi % ofield.P
+            t = x * y % ofield.P
+        else:
+            x, y, t = p.x % ofield.P, p.y % ofield.P, p.t % ofield.P
+        xs.append(x)
+        ys.append(y)
+        ts.append(t)
+    return xs, ys, ts
+
+
+def marshal_points(points: Sequence[ExtPoint], pad_to: int) -> np.ndarray:
+    """Extended points -> [3, 16, pad_to] uint32 plain digit planes
+    (x, y, t), padded with the identity (0, 1, 0)."""
+    xs, ys, ts = affine_xyt(points)
+    pad = pad_to - len(points)
+    xs += [0] * pad
+    ys += [1] * pad
+    ts += [0] * pad
+    words = np.stack([convert.bigints_to_words_le(v) for v in (xs, ys, ts)])  # [3, 8, pad_to]
+    planes = np.empty((3, 16, pad_to), dtype=np.uint32)
+    planes[:, 0::2] = words & 0xFFFF
+    planes[:, 1::2] = words >> 16
+    return planes
+
+
+def marshal_scalars(scalars: Sequence[int], pad_to: int) -> np.ndarray:
+    """Scalars -> [8, pad_to] uint32 LE word planes, padded with zeros."""
+    return convert.bigints_to_words_le(list(scalars) + [0] * (pad_to - len(scalars)))
+
+
+def _signed_ok(config: MSMConfig, scalar_words: np.ndarray) -> bool:
+    """Signed recoding needs scalars < 2^254 (no carry out of the top
+    window); field scalars are below 2^253 (LE word 7 < 2^29)."""
+    return config.signed_digits and bool(np.all(scalar_words[7] < (1 << 29)))
+
+
+def _device_msm(points_plain, scalar_words, *, window_size, n_chunks, chunk_len,
+                signed_digits=False, device_affine=False, device=None) -> torch.Tensor:
+    """Staged MSM over [3, 16, n] plain planes and [8, n] LE scalar words,
+    n a whole number of batches. numpy inputs are copied to `device` batch
+    by batch from pinned memory, queued without waiting; tensors already on
+    a device are sliced there. Returns the finish stage's window sums on
+    the device, without synchronizing."""
+    M = n_chunks * chunk_len
+    n = points_plain.shape[-1]
+    assert n % M == 0, (n, M)
+    host_input = isinstance(points_plain, np.ndarray)
+    device = torch.device(device) if host_input else points_plain.device
+    carry = _identity_carry(window_size, signed_digits, device)
+    for b in range(n // M):
+        sl = slice(b * M, (b + 1) * M)
+        if host_input:
+            pts_b = _host_tensor(points_plain[:, :, sl], device).to(device, non_blocking=True)
+            sc_b = _host_tensor(scalar_words[:, sl], device).to(device, non_blocking=True)
+        else:
+            pts_b = points_plain[:, :, sl].contiguous()
+            sc_b = scalar_words[:, sl].contiguous()
+        carry = _batch_planes_impl(
+            pts_b, sc_b, carry, window_size=window_size, n_chunks=n_chunks,
+            chunk_len=chunk_len, signed_digits=signed_digits,
+        )
+    return _call_finish(carry, device_affine)
+
+
+def _dispatch_planes(points: Sequence[ExtPoint], scalars: Sequence[int], config: MSMConfig,
+                     device: torch.device):
+    """Marshal one job on the host and queue its device pipeline; returns
+    (window sums on the device, window size) without synchronizing."""
+    w, C, L, pad_to = _padded_plan(config, len(points))
+    pts = marshal_points(points, pad_to)
+    sc = marshal_scalars(scalars, pad_to)
+    out = _device_msm(
+        pts, sc, window_size=w, n_chunks=C, chunk_len=L, signed_digits=_signed_ok(config, sc),
+        device_affine=config.device_affine, device=device,
+    )
+    return out, w
+
+
+def msm_window_sums_host(points: Sequence[ExtPoint], scalars: Sequence[int],
+                         config: MSMConfig, device: torch.device):
+    """Run the device pipeline; (window sums as ExtPoints, LSB first, w)."""
+    out, w = _dispatch_planes(points, scalars, config, device)
+    return window_sums_to_points(out.cpu().numpy()), w
+
+
+def msm_affine(points: Sequence[ExtPoint], scalars: Sequence[int], config: MSMConfig,
+               device: torch.device) -> tuple[int, int]:
+    wsums, w = msm_window_sums_host(points, scalars, config, device)
+    return ocurve.to_affine(combine_windows(wsums, w))
+
+
+def msm_affine_batch(jobs: Sequence[tuple[Sequence[ExtPoint], Sequence[int]]],
+                     config: MSMConfig, device: torch.device) -> list[tuple[int, int]]:
+    """Many list-input MSMs: each job's device work is queued and runs
+    while the host marshals the next job; results are fetched, and the
+    windows combined, only after every job has been queued."""
+    queued = [_dispatch_planes(points, scalars, config, device) for points, scalars in jobs]
+    return [_fetch_affine(out, w) for out, w in queued]
+
+
+# ---------------------------------------------------------------------------
+# The wire path
+# ---------------------------------------------------------------------------
+
+
+def _wire_rows(points_be: np.ndarray, what: str) -> np.ndarray:
+    """Wire points as contiguous [n, 32] u32 rows; z must be 1."""
+    rows = np.ascontiguousarray(convert.as_u32_array(points_be, "wire points")).reshape(-1, 32)
+    z = rows[:, 24:32]
+    if not (np.all(z[:, :7] == 0) and np.all(z[:, 7] == 1)):
+        raise ValueError(f"{what} requires z == 1")
+    return rows
+
+
+def _scalar_rows(scalars_be: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(convert.as_u32_array(scalars_be, "wire scalars")).reshape(-1, 8)
+
+
+def _padded_xy(rows: np.ndarray, pad_to: int) -> np.ndarray:
+    """[n, 32] wire rows -> [pad_to, 16] x||y rows, padded with the
+    identity: x = 0, y = 1 (the BE low word)."""
+    xy = np.zeros((pad_to, 16), dtype=np.uint32)
+    xy[: rows.shape[0]] = rows[:, :16]
+    xy[rows.shape[0] :, 15] = 1
+    return xy
+
+
+def _padded_scalars(scalars_be: np.ndarray, pad_to: int, config: MSMConfig):
+    """([pad_to, 8] scalar rows padded with zeros, whether signed digits
+    apply: they need scalars < 2^254, and BE word 0 is the top word)."""
+    sc = np.zeros((pad_to, 8), dtype=np.uint32)
+    sc[: scalars_be.shape[0]] = scalars_be
+    return sc, config.signed_digits and bool(np.all(scalars_be[:, 0] < (1 << 29)))
 
 
 def _device_msm_wire_staged(xy: np.ndarray, sc: np.ndarray, *, window_size, n_chunks,
-                            chunk_len, signed_digits, device: torch.device) -> torch.Tensor:
+                            chunk_len, signed_digits, device_affine=False,
+                            device: torch.device) -> torch.Tensor:
     """Staged wire MSM over padded [n, 16] x||y and [n, 8] scalar rows.
 
     Each batch's rows are copied with non_blocking=True from pinned host
@@ -93,10 +328,7 @@ def _device_msm_wire_staged(xy: np.ndarray, sc: np.ndarray, *, window_size, n_ch
     M = n_chunks * chunk_len
     n = xy.shape[0]
     assert n % M == 0, (n, M)
-    xy_t = torch.from_numpy(xy.view(np.int32))
-    sc_t = torch.from_numpy(sc.view(np.int32))
-    if device.type == "cuda":
-        xy_t, sc_t = xy_t.pin_memory(), sc_t.pin_memory()
+    xy_t, sc_t = _host_tensor(xy, device), _host_tensor(sc, device)
     carry = _identity_carry(window_size, signed_digits, device)
     for b in range(n // M):
         dxy = xy_t[b * M : (b + 1) * M].to(device, non_blocking=True)
@@ -105,34 +337,24 @@ def _device_msm_wire_staged(xy: np.ndarray, sc: np.ndarray, *, window_size, n_ch
             dxy, dsc, carry, window_size=window_size, n_chunks=n_chunks,
             chunk_len=chunk_len, signed_digits=signed_digits,
         )
-    return _finish_impl(carry)
+    return _call_finish(carry, device_affine)
 
 
 def _dispatch_wire(points_be: np.ndarray, scalars_be: np.ndarray, config: MSMConfig,
                    device: torch.device):
-    """Validate and pad wire inputs, run the device pipeline; returns
-    (window sums [4, 16, K] on the device, window size)."""
-    points_be = np.ascontiguousarray(convert.as_u32_array(points_be, "wire points")).reshape(-1, 32)
-    scalars_be = np.ascontiguousarray(convert.as_u32_array(scalars_be, "wire scalars")).reshape(-1, 8)
-    n = points_be.shape[0]
+    """Validate and pad wire inputs and queue the device pipeline; returns
+    (window sums on the device, window size) without synchronizing, so a
+    caller can queue many jobs before it fetches any."""
+    rows = _wire_rows(points_be, "the wire path")
+    scalars_be = _scalar_rows(scalars_be)
+    n = rows.shape[0]
     if scalars_be.shape[0] != n:
         raise ValueError(f"points/scalars length mismatch: {n} vs {scalars_be.shape[0]}")
-    z = points_be[:, 24:32]
-    if not (np.all(z[:, :7] == 0) and np.all(z[:, 7] == 1)):
-        raise ValueError("the wire path requires z == 1")
-
-    w, C, L = config.resolved_wire_plan(n)
-    batch = C * L
-    pad_to = -(-n // batch) * batch
-    xy = np.zeros((pad_to, 16), dtype=np.uint32)
-    xy[:n] = points_be[:, :16]
-    xy[n:, 15] = 1  # identity padding: x = 0, y = 1 (BE low word)
-    sc = np.zeros((pad_to, 8), dtype=np.uint32)
-    sc[:n] = scalars_be
-    # signed recoding needs scalars < 2^254; BE word 0 is the top word
-    signed = config.signed_digits and bool(np.all(scalars_be[:, 0] < (1 << 29)))
+    w, C, L, pad_to = _padded_plan(config, n)
+    sc, signed = _padded_scalars(scalars_be, pad_to, config)
     out = _device_msm_wire_staged(
-        xy, sc, window_size=w, n_chunks=C, chunk_len=L, signed_digits=signed, device=device,
+        _padded_xy(rows, pad_to), sc, window_size=w, n_chunks=C, chunk_len=L,
+        signed_digits=signed, device_affine=config.device_affine, device=device,
     )
     return out, w
 
@@ -140,6 +362,82 @@ def _dispatch_wire(points_be: np.ndarray, scalars_be: np.ndarray, config: MSMCon
 def msm_affine_wire(points_be: np.ndarray, scalars_be: np.ndarray, config: MSMConfig,
                     device: torch.device) -> tuple[int, int]:
     """Wire-format MSM: [n, 32] BE point rows (z == 1), [n, 8] BE scalars."""
-    out, w = _dispatch_wire(points_be, scalars_be, config, device)
-    wsums = window_sums_to_points(out.cpu().numpy())
-    return ocurve.to_affine(combine_windows(wsums, w))
+    return _fetch_affine(*_dispatch_wire(points_be, scalars_be, config, device))
+
+
+def msm_affine_batch_wire(jobs: Sequence[tuple[np.ndarray, np.ndarray]], config: MSMConfig,
+                          device: torch.device) -> list[tuple[int, int]]:
+    """Many wire MSMs: every job's copies and kernels are queued before any
+    result is fetched."""
+    queued = [_dispatch_wire(points_be, scalars_be, config, device)
+              for points_be, scalars_be in jobs]
+    return [_fetch_affine(out, w) for out, w in queued]
+
+
+# ---------------------------------------------------------------------------
+# The fixed-base plan
+# ---------------------------------------------------------------------------
+
+
+class WirePlan:
+    """Fixed bases resident on the device; each job streams its scalars.
+
+    Construction copies the bases' x||y rows once and converts each batch
+    to Montgomery Niels planes (`to_niels_xy`), which stay on the device.
+    A job then moves only its [n, 8] scalar rows, 32 bytes a point against
+    the wire path's 96, and runs no conversion. Batches keep the wire
+    plan's (w, C, L).
+    """
+
+    def __init__(self, points_be: np.ndarray, config: MSMConfig, device: torch.device):
+        rows = _wire_rows(points_be, "a fixed-base plan")
+        self.config = config
+        self.device = torch.device(device)
+        self.n = rows.shape[0]
+        self.w, self.C, self.L, self.pad_to = _padded_plan(config, self.n)
+        M = self.C * self.L
+        xy_t = _host_tensor(_padded_xy(rows, self.pad_to), self.device)
+        self._niels = [
+            _plan_niels_impl(xy_t[b * M : (b + 1) * M].to(self.device, non_blocking=True))
+            for b in range(self.pad_to // M)
+        ]
+
+    @classmethod
+    def from_state(cls, niels: Sequence[torch.Tensor], *, n: int, w: int, C: int, L: int,
+                   pad_to: int, config: MSMConfig, device) -> "WirePlan":
+        """A plan from resident state made elsewhere: one [3, 16, C * L]
+        int32 Niels tensor per batch."""
+        self = cls.__new__(cls)
+        self.config, self.device = config, torch.device(device)
+        self.n, self.w, self.C, self.L, self.pad_to = n, w, C, L, pad_to
+        self._niels = [t.to(self.device) for t in niels]
+        if len(self._niels) * C * L != pad_to or any(
+            tuple(t.shape) != (3, 16, C * L) for t in self._niels
+        ):
+            raise ValueError("resident Niels batches do not match (C, L, pad_to)")
+        return self
+
+    def dispatch(self, scalars_be: np.ndarray):
+        """Queue one job's copies and kernels; returns (window sums on the
+        device, w) without synchronizing."""
+        scalars_be = _scalar_rows(scalars_be)
+        if scalars_be.shape[0] != self.n:
+            raise ValueError(f"plan holds {self.n} bases but got {scalars_be.shape[0]} scalars")
+        M = self.C * self.L
+        sc, signed = _padded_scalars(scalars_be, self.pad_to, self.config)
+        sc_t = _host_tensor(sc, self.device)
+        carry = _identity_carry(self.w, signed, self.device)
+        for b, niels in enumerate(self._niels):
+            dsc = sc_t[b * M : (b + 1) * M].to(self.device, non_blocking=True)
+            carry = _fixed_batch_impl(
+                niels, dsc, carry, window_size=self.w, n_chunks=self.C, chunk_len=self.L,
+                signed_digits=signed,
+            )
+        return _call_finish(carry, self.config.device_affine), self.w
+
+    def msm_affine(self, scalars_be: np.ndarray) -> tuple[int, int]:
+        return _fetch_affine(*self.dispatch(scalars_be))
+
+    def msm_affine_batch(self, scalars_list: Sequence[np.ndarray]) -> list[tuple[int, int]]:
+        queued = [self.dispatch(s) for s in scalars_list]
+        return [_fetch_affine(out, w) for out, w in queued]

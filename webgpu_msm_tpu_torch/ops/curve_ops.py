@@ -55,17 +55,27 @@ def add(p1: PointVec, p2: PointVec) -> PointVec:
     return PointVec(mont_mul(e, f), mont_mul(g, h), mont_mul(e, h), mont_mul(f, g))
 
 
-def add_niels(p1: PointVec, ym2, yp2, td2) -> PointVec:
-    """p1 + p2 with p2 in Niels form (y-x, y+x, 2d*t; z == 1): 7 multiplies."""
-    a = mont_mul(field_sub(p1.y, p1.x), ym2)
-    b = mont_mul(field_add(p1.y, p1.x), yp2)
-    c = mont_mul(p1.t, td2)
+def add_niels(p1: PointVec, ym2, yp2, td2, mul=mont_mul) -> PointVec:
+    """p1 + p2 with p2 in Niels form (y-x, y+x, 2d*t; z == 1): 7 multiplies,
+    each through `mul`, a Montgomery product with `mont_mul`'s contract."""
+    a = mul(field_sub(p1.y, p1.x), ym2)
+    b = mul(field_add(p1.y, p1.x), yp2)
+    c = mul(p1.t, td2)
     d = field_add(p1.z, p1.z)
     e = field_sub(b, a)
     f = field_sub(d, c)
     g = field_add(d, c)
     h = field_add(b, a)
-    return PointVec(mont_mul(e, f), mont_mul(g, h), mont_mul(e, h), mont_mul(f, g))
+    return PointVec(mul(e, f), mul(g, h), mul(e, h), mul(f, g))
+
+
+def to_niels_planes(points_plain: torch.Tensor) -> torch.Tensor:
+    """[3, 16, n] plain (x, y, t) digit planes (values below p) ->
+    [3, 16, n] Montgomery Niels planes (y-x, y+x, 2d*t)."""
+    x = field_ops.to_mont(points_plain[0])
+    y = field_ops.to_mont(points_plain[1])
+    t = field_ops.to_mont(points_plain[2])
+    return torch.stack([field_sub(y, x), field_add(y, x), mul_plain_const(t, 2 * EDWARDS_D)])
 
 
 def to_niels_from_xy(x_planes: torch.Tensor, y_planes: torch.Tensor) -> torch.Tensor:

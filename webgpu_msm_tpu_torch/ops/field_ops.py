@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from ..oracle.field import N0_INV_16, P, R, R2_MOD_P
+from ..oracle.field import N0_INV_16, P, R, R2_MOD_P, R_MOD_P
 from . import limbs
 from .limbs import DIGIT_BITS, DIGIT_MASK, N_DIGITS
 
@@ -80,6 +80,28 @@ def mont_mul_const(a: torch.Tensor, c: int) -> torch.Tensor:
 def mul_plain_const(a: torch.Tensor, k: int) -> torch.Tensor:
     """(a * k) mod p for a constant k, staying in the Montgomery domain."""
     return mont_mul_const(a, (k * R) % P)
+
+
+def mont_pow_const(a: torch.Tensor, e: int) -> torch.Tensor:
+    """a*R -> (a^e)*R for a python-int exponent e >= 0.
+
+    Left-to-right square-and-multiply over the bits of e: one square a bit
+    and one product where the bit is set (the JAX package computes both
+    every step and selects, since its loop is traced once; the digits are
+    the same). Plain PyTorch on `a`'s device.
+    """
+    acc = limbs.digits_of_int(R_MOD_P, a.shape[1:], a.device)  # Montgomery 1
+    for i in reversed(range(e.bit_length())):
+        acc = mont_sqr(acc)
+        if (e >> i) & 1:
+            acc = mont_mul(acc, a)
+    return acc
+
+
+def finv_mont(a: torch.Tensor) -> torch.Tensor:
+    """Montgomery-domain inverse a*R -> (a^-1)*R by Fermat (e = p - 2);
+    maps 0 to 0."""
+    return mont_pow_const(a, P - 2)
 
 
 def to_mont(a: torch.Tensor) -> torch.Tensor:

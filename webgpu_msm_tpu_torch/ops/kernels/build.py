@@ -1,6 +1,7 @@
 """Build the CUDA kernels with nvcc at first use and load them with ctypes.
 
-`csrc/*.cu` compile into one shared library with a plain C interface,
+`csrc/*.cu` compile, one nvcc process per source and all at once, into
+objects that link into one shared library with a plain C interface,
 `build/torch_kernels/libmsm_kernels-<hash>.so` at the repository root (git
 ignores `build/`), where the hash covers the sources and the flags: a
 changed source builds anew, an unchanged one loads what is there. Nothing
@@ -22,7 +23,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 NVCC_DEFAULT = Path("/usr/local/cuda/bin/nvcc")  # when nvcc is not on PATH
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
@@ -30,9 +31,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry point -> argument types; each returns cudaGetLastError() as int.
 SIGNATURES = {
     "launch_to_niels_xy": (_P, _P, _I, _P),
+    "launch_to_niels": (_P, _P, _I, _P),
     "launch_padd": (_P, _P, _P, _I, _P),
     "launch_padd_masked": (_P, _P, _P, _P, _I, _P),
     "launch_accumulate_scan": (_P, _P, _P, _P, _P, _I, _I, _P),
+    "launch_accumulate_scan_mma": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
     "launch_grouped_running_sum": (_P, _P, _P, _I, _I, _P),
 }
 
@@ -60,6 +63,12 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built on this machine")
 
 
+def _output(what: str, returncode: int, output: str) -> str:
+    if returncode != 0:
+        raise RuntimeError(f"nvcc failed on {what} ({returncode}):\n{output}")
+    return output
+
+
 def build() -> Path:
     """Compile the kernels unless this source hash is already built; the
     compiler's -Xptxas -v report is kept beside the library (.log)."""
@@ -67,21 +76,27 @@ def build() -> Path:
     if so.exists():
         return so
     so.parent.mkdir(parents=True, exist_ok=True)
-    cu = [str(f) for f in sorted(CSRC.glob("*.cu"))]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=so.parent)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
-            capture_output=True, text=True,
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=so.parent) as tmp:
+        objs = {cu: Path(tmp) / (cu.stem + ".o") for cu in sorted(CSRC.glob("*.cu"))}
+        procs = {
+            cu: subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(cu)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            for cu, obj in objs.items()
+        }
+        # Wait for every compiler before raising for one.
+        outputs = {cu: proc.communicate()[0] for cu, proc in procs.items()}
+        log = "".join(_output(cu.name, procs[cu].returncode, out) for cu, out in outputs.items())
+        lib = Path(tmp) / so.name
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(lib), *map(str, objs.values())],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-        so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, so)  # atomic: concurrent builders each install a whole file
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        log += _output("the link", link.returncode, link.stdout)
+        so.with_suffix(".log").write_text(log)
+        os.replace(lib, so)  # atomic: a concurrent build installs a whole file too
     return so
 
 

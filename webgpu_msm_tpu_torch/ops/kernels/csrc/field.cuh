@@ -22,16 +22,19 @@ namespace msm {
 typedef uint32_t u32;
 typedef uint64_t u64;
 
-// p, R mod p, R^2 mod p and 2d*R mod p (d = 3021) as 32-bit limbs, least
-// significant first; N0 = -p^-1 mod 2^32.
-__constant__ u32 P_L[8] = {0x00000001u, 0x0a118000u, 0xd0000001u, 0x59aa76feu,
+// p, R mod p, R^2 mod p, 2d*R mod p and 2d*R^2 mod p (d = 3021) as 32-bit
+// limbs, least significant first; N0 = -p^-1 mod 2^32. `static`: every
+// source that includes this header keeps its own copy.
+static __constant__ u32 P_L[8] = {0x00000001u, 0x0a118000u, 0xd0000001u, 0x59aa76feu,
                            0x5c37b001u, 0x60b44d1eu, 0x9a2ca556u, 0x12ab655eu};
-__constant__ u32 R_L[8] = {0xfffffff3u, 0x7d1c7fffu, 0x6ffffff2u, 0x7257f50fu,
+static __constant__ u32 R_L[8] = {0xfffffff3u, 0x7d1c7fffu, 0x6ffffff2u, 0x7257f50fu,
                            0x512c0feeu, 0x16d81575u, 0x2bbb9a9du, 0x0d4bda32u};
-__constant__ u32 R2_L[8] = {0xb861857bu, 0x25d577bau, 0x8860591fu, 0xcc2c27b5u,
+static __constant__ u32 R2_L[8] = {0xb861857bu, 0x25d577bau, 0x8860591fu, 0xcc2c27b5u,
                             0xe5dc8593u, 0xa7cc008fu, 0xeff1c939u, 0x011fdae7u};
-__constant__ u32 TWO_D_R_L[8] = {0xfffebc5fu, 0x967e7fffu, 0x2ffeafa4u, 0x87a7a94fu,
+static __constant__ u32 TWO_D_R_L[8] = {0xfffebc5fu, 0x967e7fffu, 0x2ffeafa4u, 0x87a7a94fu,
                                  0xbde89b04u, 0xb14e318du, 0xb55008a9u, 0x014ee2fau};
+static __constant__ u32 TWO_D_R2_L[8] = {0xada85793u, 0xa95b4ce3u, 0xc1f767a9u, 0xa56a7723u,
+                                  0x53b21056u, 0x251bea2au, 0x7338c947u, 0x10cbc8f0u};
 constexpr u32 N0 = 0xffffffffu;
 
 // a in [0, 2p) -> a mod p.
@@ -178,25 +181,54 @@ __device__ __forceinline__ void unified_add(Pt& r, const Pt& p, const Pt& q) {
 }
 
 // p + q with q in Niels form (y-x, y+x, 2d*t; z == 1) (_niels_add): 7
-// products. r may alias p.
-__device__ __forceinline__ void niels_add(Pt& r, const Pt& p, const u32 ym[8],
-                                          const u32 yp[8], const u32 td[8]) {
+// products, each through `mul(r, a, b)`, a Montgomery product with the
+// contract of mont_mul. r may alias p.
+template <class Mul>
+__device__ __forceinline__ void niels_add_with(Pt& r, const Pt& p, const u32 ym[8],
+                                               const u32 yp[8], const u32 td[8], Mul mul) {
   u32 a[8], b[8], c[8], d[8], u[8];
   fsub(u, p.y, p.x);
-  mont_mul(a, u, ym);
+  mul(a, u, ym);
   fadd(u, p.y, p.x);
-  mont_mul(b, u, yp);
-  mont_mul(c, p.t, td);
+  mul(b, u, yp);
+  mul(c, p.t, td);
   fadd(d, p.z, p.z);
   u32 e[8], f[8], g[8], h[8];
   fsub(e, b, a);
   fsub(f, d, c);
   fadd(g, d, c);
   fadd(h, b, a);
-  mont_mul(r.x, e, f);
-  mont_mul(r.y, g, h);
-  mont_mul(r.t, e, h);
-  mont_mul(r.z, f, g);
+  mul(r.x, e, f);
+  mul(r.y, g, h);
+  mul(r.t, e, h);
+  mul(r.z, f, g);
+}
+
+// The Niels add on CIOS products.
+__device__ __forceinline__ void niels_add(Pt& r, const Pt& p, const u32 ym[8],
+                                          const u32 yp[8], const u32 td[8]) {
+  niels_add_with(r, p, ym, yp, td,
+                 [](u32 o[8], const u32 a[8], const u32 b[8]) { mont_mul(o, a, b); });
+}
+
+// One scan step's Niels operand at index `at` of packed planes [3][8][LW]
+// (one 32-bit limb per word): with the sign flag set, y-x and y+x swap and
+// 2d*t is negated.
+__device__ __forceinline__ void load_niels_signed(u32 ym[8], u32 yp[8], u32 td[8],
+                                                  const int32_t* pts, size_t LW, size_t at,
+                                                  bool neg) {
+  u32 ntd[8];
+#pragma unroll
+  for (int q = 0; q < 8; q++) {
+    const u32 ym0 = (u32)pts[q * LW + at];
+    const u32 yp0 = (u32)pts[(8 + q) * LW + at];
+    ym[q] = neg ? yp0 : ym0;
+    yp[q] = neg ? ym0 : yp0;
+    td[q] = (u32)pts[(16 + q) * LW + at];
+  }
+  fneg(ntd, td);
+#pragma unroll
+  for (int q = 0; q < 8; q++) td[q] = neg ? ntd[q] : td[q];
 }
 
 // One coordinate from 16 digit planes: digit k of the element at `base`

@@ -1,4 +1,5 @@
-// The five point kernels of the wire-format MSM path, for sm_90a.
+// The point kernels of the MSM paths on CIOS Montgomery products, for sm_90a
+// (the tensor-core REDC scan is in mma_kernels.cu).
 //
 // Each replaces one Pallas TPU kernel of the JAX package's
 // ops/pallas/padd_kernels.py and keeps its tensor layouts, so the wrappers
@@ -47,6 +48,36 @@ extern "C" __global__ void to_niels_xy_kernel(const int32_t* __restrict__ in,
   mont_mul(t, x, y);  // (x*y)R
   load_const(k, TWO_D_R_L);
   mont_mul(t, t, k);  // 2d*x*y*R
+  store_fp(out, stride, w, ym);
+  store_fp(out, stride, 16 * stride + w, yp);
+  store_fp(out, stride, 32 * stride + w, t);
+}
+
+// ---------------------------------------------------------------------------
+// to_niels. Replaces _to_niels_kernel (padd_kernels.py, to_niels): plain
+// (x, y, t) [3][16][W] -> Montgomery Niels (y-x, y+x, 2d*t) [3][16][W], the
+// planes path's conversion. x and y go to the Montgomery domain by R^2, and
+// t by the one constant 2d*R^2: t * (2d*R^2) * R^-1 = 2d*t*R. Inputs must
+// be below p, as for the TPU kernel. Per lane: 3 Montgomery products, 192 B
+// read and 192 B written; bound by bytes on the card. One thread per lane,
+// coalesced plane loads and stores, ragged last block masked.
+// ---------------------------------------------------------------------------
+extern "C" __global__ void to_niels_kernel(const int32_t* __restrict__ in,
+                                           int32_t* __restrict__ out, int W) {
+  const int w = blockIdx.x * blockDim.x + threadIdx.x;
+  if (w >= W) return;
+  const size_t stride = (size_t)W;
+  u32 x[8], y[8], t[8], k[8], ym[8], yp[8];
+  load_fp(x, in, stride, w);
+  load_fp(y, in, stride, 16 * stride + w);
+  load_fp(t, in, stride, 32 * stride + w);
+  load_const(k, R2_L);
+  mont_mul(x, x, k);  // to_mont
+  mont_mul(y, y, k);
+  fsub(ym, y, x);
+  fadd(yp, y, x);
+  load_const(k, TWO_D_R2_L);
+  mont_mul(t, t, k);  // 2d*t*R
   store_fp(out, stride, w, ym);
   store_fp(out, stride, 16 * stride + w, yp);
   store_fp(out, stride, 32 * stride + w, t);
@@ -119,18 +150,8 @@ extern "C" __global__ void accumulate_scan_kernel(const int32_t* __restrict__ pt
     const u32 raw = (u32)ids[at];
     const u32 id = raw & 0x7fffffffu;
     const bool neg = (raw >> 31) != 0;
-    u32 ym[8], yp[8], td[8], ntd[8];
-#pragma unroll
-    for (int q = 0; q < 8; q++) {
-      const u32 ym0 = (u32)pts[q * LW + at];
-      const u32 yp0 = (u32)pts[(8 + q) * LW + at];
-      ym[q] = neg ? yp0 : ym0;
-      yp[q] = neg ? ym0 : yp0;
-      td[q] = (u32)pts[(16 + q) * LW + at];
-    }
-    fneg(ntd, td);
-#pragma unroll
-    for (int q = 0; q < 8; q++) td[q] = neg ? ntd[q] : td[q];
+    u32 ym[8], yp[8], td[8];
+    load_niels_signed(ym, yp, td, pts, LW, at, neg);
     store_pt(staged, LW, at, acc);
     if (id != acc_id) set_identity(acc);
     niels_add(acc, acc, ym, yp, td);
@@ -174,6 +195,12 @@ extern "C" __global__ void grouped_running_sum_kernel(const int32_t* __restrict_
 extern "C" int launch_to_niels_xy(const void* in, void* out, int M, void* stream) {
   to_niels_xy_kernel<<<blocks(M, kThreads), kThreads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)in, (int32_t*)out, M);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int launch_to_niels(const void* in, void* out, int W, void* stream) {
+  to_niels_kernel<<<blocks(W, kThreads), kThreads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)in, (int32_t*)out, W);
   return (int)cudaGetLastError();
 }
 

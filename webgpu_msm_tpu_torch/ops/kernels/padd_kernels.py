@@ -1,9 +1,9 @@
-"""Wrappers, plain versions and launch counts of the five point kernels.
+"""Wrappers, plain versions and launch counts of the seven point kernels.
 
 Each wrapper takes int32 tensors holding u32 bits, at the JAX package's
 layouts (`ops/pallas/padd_kernels.py`). A tensor on the CPU goes to the
 kernel's plain PyTorch version; a CUDA tensor launches the hand-written
-sm_90a kernel of `csrc/padd_kernels.cu` on the current stream, or raises.
+sm_90a kernel of `csrc/*.cu` on the current stream, or raises.
 No wrapper falls back from the kernel to the plain version.
 
 `launches[name]` counts the kernel launches of each wrapper (never the
@@ -15,8 +15,12 @@ import torch
 
 from .. import curve_ops, field_ops, limbs
 from ..curve_ops import PointVec
+from . import field_kernels_mma
 
-KERNELS = ("to_niels_xy", "accumulate_scan", "padd_masked", "padd", "grouped_running_sum")
+KERNELS = (
+    "to_niels_xy", "accumulate_scan", "padd_masked", "padd", "grouped_running_sum",
+    "to_niels", "accumulate_scan_mma",
+)
 launches: dict[str, int] = {name: 0 for name in KERNELS}
 
 SENTINEL = 0xFFFFFFFF  # initial scan id: no masked bucket id equals it
@@ -84,11 +88,33 @@ def to_niels_xy(pts: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# 2. accumulate_scan: packed Niels [3, 8, L, W] + ids [L, W] ->
-#    (final_acc [4, 16, W], final_id [W], staged [4, 16, L, W]).
+# 6. to_niels: plain (x, y, t) [3, 16, W], values below p -> Montgomery
+#    Niels (y-x, y+x, 2d*t) [3, 16, W].
 # ---------------------------------------------------------------------------
-def accumulate_scan_plain(pts: torch.Tensor, ids: torch.Tensor):
-    """Python loop over the L steps: the JAX package's lax.scan fallback."""
+def to_niels_plain(pts: torch.Tensor) -> torch.Tensor:
+    return curve_ops.to_niels_planes(limbs.as_i64(pts)).to(torch.int32)
+
+
+def to_niels(pts: torch.Tensor) -> torch.Tensor:
+    W = pts.shape[-1]
+    _shape("to_niels", pts, (3, 16, W))
+    if not _on_card("to_niels", pts):
+        return to_niels_plain(pts)
+    out = torch.empty_like(pts)
+    _launch("to_niels", "launch_to_niels", pts.data_ptr(), out.data_ptr(), W)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 2 and 7. accumulate_scan: packed Niels [3, 8, L, W] + ids [L, W] ->
+#    (final_acc [4, 16, W], final_id [W], staged [4, 16, L, W]), on CIOS
+#    products or, with use_mma, on the matrix-form reduction (the tensor
+#    cores on the card).
+# ---------------------------------------------------------------------------
+def accumulate_scan_plain(pts: torch.Tensor, ids: torch.Tensor, use_mma: bool = False):
+    """Python loop over the L steps: the JAX package's lax.scan fallback.
+    use_mma takes every product through `mont_mul_mma_plain`."""
+    mul = field_kernels_mma.mont_mul_mma_plain if use_mma else field_ops.mont_mul
     _, _, L, W = pts.shape
     p = limbs.as_i64(pts)
     planes = torch.stack([p & limbs.DIGIT_MASK, p >> 16], dim=2).reshape(3, 16, L, W)
@@ -107,25 +133,35 @@ def accumulate_scan_plain(pts: torch.Tensor, ids: torch.Tensor):
         td = limbs.select(neg, field_ops.field_neg(td0), td0)
         staged[:, :, l] = acc.stacked()
         # Run boundary: reset to the identity, then always add.
-        acc = curve_ops.add_niels(curve_ops.select(ids_l == acc_id, acc, ident), ym, yp, td)
+        acc = curve_ops.add_niels(
+            curve_ops.select(ids_l == acc_id, acc, ident), ym, yp, td, mul=mul
+        )
         acc_id = ids_l
     return acc.stacked().to(torch.int32), limbs.as_i32(acc_id), staged
 
 
-def accumulate_scan(pts: torch.Tensor, ids: torch.Tensor):
+def accumulate_scan(pts: torch.Tensor, ids: torch.Tensor, use_mma: bool = False):
+    """use_mma (the JAX package's `use_mxu`) selects the kernel whose
+    Montgomery reductions run on the tensor cores; the outputs are the same
+    digit for digit. No engine sets it: the default is the CIOS scan."""
     _, _, L, W = pts.shape
     _shape("accumulate_scan", pts, (3, 8, L, W))
     _shape("accumulate_scan", ids, (L, W))
     if not _on_card("accumulate_scan", pts, ids):
-        return accumulate_scan_plain(pts, ids)
+        return accumulate_scan_plain(pts, ids, use_mma)
     dev = pts.device
     staged = torch.empty((4, 16, L, W), dtype=torch.int32, device=dev)
     final_acc = torch.empty((4, 16, W), dtype=torch.int32, device=dev)
     final_id = torch.empty((W,), dtype=torch.int32, device=dev)
-    _launch(
-        "accumulate_scan", "launch_accumulate_scan", pts.data_ptr(), ids.data_ptr(),
-        staged.data_ptr(), final_acc.data_ptr(), final_id.data_ptr(), L, W,
-    )
+    outs = (staged.data_ptr(), final_acc.data_ptr(), final_id.data_ptr(), L, W)
+    if use_mma:
+        m1, m2 = field_kernels_mma.const_inputs(dev)
+        _launch(
+            "accumulate_scan_mma", "launch_accumulate_scan_mma", pts.data_ptr(),
+            ids.data_ptr(), m1.data_ptr(), m2.data_ptr(), *outs,
+        )
+    else:
+        _launch("accumulate_scan", "launch_accumulate_scan", pts.data_ptr(), ids.data_ptr(), *outs)
     return final_acc, final_id, staged
 
 

@@ -1,9 +1,11 @@
 """Single-device Pippenger stages: batch accumulation and bucket reduction.
 
-The counterpart of the JAX package's `ops/pippenger.py` on the wire path:
+The counterpart of the JAX package's `ops/pippenger.py`:
 
 1. `compute_digits`: window split, sign flag in bit 31.
-2. `_accumulate_batch`: a stable sort of each window's bucket ids, a
+2. `accumulate_batch` / `accumulate_buckets`: one batch, or a loop over
+   batches that adds each one's buckets with `padd`. Each batch is
+   `_accumulate_batch`: a stable sort of each window's bucket ids, a
    gather of packed point rows into run order, the `accumulate_scan`
    kernel over C lanes of L steps per window, a segmented scan over lanes
    with `padd_masked`, a bucket histogram, and bucket assembly with `padd`.
@@ -47,6 +49,62 @@ def compute_digits(
 def identity_stacked(shape, device) -> torch.Tensor:
     """[4, 16, *shape] int32 identity points."""
     return curve_ops.identity(tuple(shape), device).stacked().to(torch.int32)
+
+
+def identity_buckets(window_size: int, signed_digits: bool, device="cpu") -> torch.Tensor:
+    """Identity bucket array [4, 16, K, B] int32 (the batch loop's carry)."""
+    shape = (windows.n_windows(window_size), n_buckets(window_size, signed_digits))
+    return identity_stacked(shape, device)
+
+
+def _vadd(a_st: torch.Tensor, b_st: torch.Tensor) -> torch.Tensor:
+    """Unified add over stacked [4, 16, *batch] int32 points (`padd`)."""
+    return pk.padd(a_st.reshape(4, 16, -1), b_st.reshape(4, 16, -1)).reshape(a_st.shape)
+
+
+def accumulate_batch(
+    points_niels: torch.Tensor,  # [3, 16, M] int32 Montgomery Niels planes
+    scalar_words: torch.Tensor,  # [8, M] int64 LE u32 words
+    *,
+    window_size: int,
+    n_chunks: int,
+    chunk_len: int,
+    signed_digits: bool = False,
+) -> torch.Tensor:
+    """One batch -> bucket sums [4, 16, K, B] int32 (Montgomery)."""
+    digits = compute_digits(scalar_words, window_size, signed_digits)
+    return _accumulate_batch(
+        points_niels, digits, window_size, n_chunks, chunk_len,
+        n_buckets(window_size, signed_digits),
+    )
+
+
+def accumulate_buckets(
+    points: torch.Tensor,  # [3, 16, n] int32 Montgomery Niels planes
+    scalar_words: torch.Tensor,  # [8, n] int64 LE u32 words
+    *,
+    window_size: int,
+    n_chunks: int,
+    chunk_len: int,
+    signed_digits: bool = False,
+) -> torch.Tensor:
+    """Bucket sums [4, 16, K, B] of n points, n a multiple of the batch
+    M = n_chunks * chunk_len (callers pad with identity points and zero
+    scalars). More than one batch runs as a loop that adds each batch's
+    buckets into an identity carry, so peak memory follows the batch."""
+    M = n_chunks * chunk_len
+    n = points.shape[-1]
+    assert n % M == 0, (n, n_chunks, chunk_len)
+    kw = dict(window_size=window_size, n_chunks=n_chunks, chunk_len=chunk_len,
+              signed_digits=signed_digits)
+    if n == M:
+        return accumulate_batch(points, scalar_words, **kw)
+    total = identity_buckets(window_size, signed_digits, points.device)
+    for b in range(n // M):
+        sl = slice(b * M, (b + 1) * M)
+        bsums = accumulate_batch(points[..., sl].contiguous(), scalar_words[:, sl], **kw)
+        total = _vadd(total, bsums)
+    return total
 
 
 def _accumulate_batch(

@@ -23,6 +23,8 @@ R2_MOD_P = (R * R) % P
 # -p^{-1} mod 2^16 / 2^32 (per-digit and per-limb Montgomery constants).
 N0_INV_16 = (-pow(P, -1, 1 << 16)) % (1 << 16)
 N0_INV_32 = (-pow(P, -1, 1 << 32)) % (1 << 32)
+# -p^{-1} mod 2^256: the whole-word constant of the matrix-form reduction.
+N0_INV_256 = (-pow(P, -1, 1 << 256)) % (1 << 256)
 
 
 def fadd(a: int, b: int) -> int:

@@ -34,6 +34,20 @@ def as_u32_array(arr: np.ndarray, what: str = "input") -> np.ndarray:
     return a.astype(np.uint32)
 
 
+def u32_be_to_bigints(arr: np.ndarray) -> list[int]:
+    """[n, 8] big-endian u32 wire rows -> python ints."""
+    arr = as_u32_array(arr, "u32 BE rows").reshape(-1, N_WORDS)
+    data = arr.astype(">u4").tobytes()
+    return [int.from_bytes(data[i * 32 : (i + 1) * 32], "big") for i in range(arr.shape[0])]
+
+
+def bigints_to_words_le(values: Sequence[int]) -> np.ndarray:
+    """[n] python ints (< 2^256) -> [8, n] little-endian u32 word planes."""
+    data = b"".join(int(v).to_bytes(32, "little") for v in values)
+    words = np.frombuffer(data, dtype="<u4").astype(np.uint32).reshape(-1, N_WORDS)
+    return np.ascontiguousarray(words.T)
+
+
 def words_le_to_bigints(arr: np.ndarray) -> list[int]:
     """[8, n] little-endian u32 word planes -> python ints."""
     arr = np.asarray(arr, dtype=np.uint32)

@@ -26,3 +26,17 @@ def planes_to_numpy(t: torch.Tensor) -> np.ndarray:
     if a.size and (a.min() < 0 or a.max() > 0xFFFFFFFF):
         raise ValueError("values outside u32 range")
     return a.astype(np.uint32)
+
+
+def wire_plan_from_jax_state(niels, *, n: int, w: int, C: int, L: int, pad_to: int,
+                             config, device="cpu"):
+    """The resident state of a JAX `WirePlan` (its `_niels` list fetched as
+    numpy u32 [3, 16, C * L] arrays, and its `n`, `w`, `C`, `L`, `pad_to`)
+    -> the port's `WirePlan` on `device`, so that bases built once in JAX
+    serve scalar jobs in both packages."""
+    from ..engines.gpu_engine import WirePlan
+
+    return WirePlan.from_state(
+        [planes_from_numpy(a, device) for a in niels],
+        n=n, w=w, C=C, L=L, pad_to=pad_to, config=config, device=device,
+    )
