@@ -7,9 +7,12 @@
 2. Builds the CUDA kernels from `webgpu_msm_tpu_torch/ops/kernels/csrc`
    with nvcc and prints each kernel's ptxas registers, spills and shared
    memory.
-3. Runs each of the seven kernels and its plain PyTorch version on the card
-   on seeded inputs at the shapes of the 2^20-point paths, requires every
-   output digit to be equal, and times both with CUDA events.
+3. Times independent `mad.lo.u32` chains (a probe kernel in this file): the
+   card's 32-bit integer multiply rate, which the operations bound of every
+   kernel uses. Runs each of the nine kernels and its plain PyTorch version
+   on the card on seeded inputs at the shapes of the 2^20-point paths,
+   requires every output digit to be equal, and times both with CUDA
+   events (the grouped sum at the shapes of both reduction passes).
 4. Drives every path with the launch counts set to 0 just before and read
    just after; each path names the kernels it must and must not launch:
    - the wire `compute_msm` on the pinned 2^16 and 2^20 inputs (regenerated
@@ -32,7 +35,9 @@ JAX; it needs the repository's `webgpu_msm_tpu_torch` package beside it.
 """
 from __future__ import annotations
 
+import ctypes
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -40,16 +45,43 @@ import time
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-# The card has no listed integer-ALU peak; the non-tensor float32 rate
-# (67 TFLOP/s) is the nearest published peak and bounds 32-bit integer
-# multiplies from above, so the bound below is a lower bound on time.
-OPS_PER_S = 67e12
+# The card has no listed integer-ALU peak, and the non-tensor float32 peak
+# (67 TFLOP/s) is about four times what it issues in 32-bit integer
+# multiplies. The operations bound therefore uses the rate that
+# `mad_rate_per_s` measures in this run.
 # 32-bit multiplies in one 8-limb CIOS Montgomery product (a*b: 64,
 # m*p: 64, m: 8), two operations (low and high word) each.
 OPS_PER_MONT_MUL = 2 * (64 + 64 + 8)
 PALLAS = "webgpu_msm_tpu/ops/pallas/"
 CSRC = "webgpu_msm_tpu_torch/ops/kernels/csrc/"
-WIRE_KERNELS = ("to_niels_xy", "accumulate_scan", "padd_masked", "padd", "grouped_running_sum")
+WIRE_KERNELS = ("to_niels_xy", "accumulate_scan_gather", "padd_masked", "padd",
+                "grouped_running_sum", "reduce_finish")
+MAD_PROBE = """
+#include <cuda_runtime.h>
+// Eight independent mad.lo.u32 chains a thread: nothing but multiply issue.
+__global__ void mad_rate_probe(unsigned* out, const unsigned* in, int iters) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const unsigned c = in[0] | 1u, d = in[1];
+  unsigned a[8];
+#pragma unroll
+  for (int j = 0; j < 8; j++) a[j] = t + j;
+  for (int i = 0; i < iters; i++) {
+#pragma unroll
+    for (int j = 0; j < 8; j++)
+      asm volatile("mad.lo.u32 %0, %0, %1, %2;" : "+r"(a[j]) : "r"(c), "r"(d));
+  }
+  unsigned s = 0;
+#pragma unroll
+  for (int j = 0; j < 8; j++) s ^= a[j];
+  out[t] = s;
+}
+extern "C" int launch_mad_rate_probe(void* out, const void* in, int n_blocks, int threads,
+                                     int iters, void* stream) {
+  mad_rate_probe<<<n_blocks, threads, 0, (cudaStream_t)stream>>>((unsigned*)out,
+                                                                 (const unsigned*)in, iters);
+  return (int)cudaGetLastError();
+}
+"""
 
 
 def check(cond: bool, msg: str) -> None:
@@ -108,6 +140,14 @@ def kernel_inputs(gen: torch.Generator, dev, M=1 << 18, K=20, C=2048, L=128, B=4
     as_i32 = lambda t: torch.where(t >= 1 << 31, t - (1 << 32), t).to(torch.int32)
     pts = lambda lead, width: field_planes(gen, lead, width).to(dev)
     scan = (as_i32(packed).contiguous().to(dev), as_i32(ids).to(dev))
+    # The gathering scan's input as a batch stage makes it: signed digits of
+    # M points per window, sorted, with the sort's permutation; packed rows.
+    digits = torch.randint(0, B, (K, C * L), generator=gen)
+    order = torch.sort(digits, dim=1, stable=True).indices
+    sorted_ids = torch.gather(digits | (torch.randint(0, 2, (K, C * L), generator=gen) << 31), 1, order)
+    lanes = lambda t: as_i32(t).reshape(K, C, L).permute(2, 0, 1).reshape(L, W).contiguous().to(dev)
+    row_planes = field_planes(gen, (3,), C * L).to(torch.int64)
+    rows = as_i32(row_planes[:, 0::2] | (row_planes[:, 1::2] << 16)).reshape(24, C * L).t().contiguous()
     return {
         "to_niels_xy": (pts((2,), M),),
         "to_niels": (pts((3,), M),),
@@ -120,12 +160,40 @@ def kernel_inputs(gen: torch.Generator, dev, M=1 << 18, K=20, C=2048, L=128, B=4
         "padd": (pts((4,), K * B), pts((4,), K * B)),
         "grouped_running_sum": (pts((Gs, 4), K * G),),
         "grouped_running_sum pass 2": (pts((G, 4), 2 * K),),
+        "accumulate_scan_gather": (rows.to(dev), lanes(order), lanes(sorted_ids), K, B),
+        "reduce_finish": (pts((4,), K * G), pts((4,), K * G), K, Gs.bit_length() - 1),
     }
 
 
-def bound(name: str, args) -> tuple[float, str]:
-    """Least time for the work these inputs need: (ms, "bytes"|"operations")."""
-    nbytes = sum(a.numel() * 4 for a in args)
+def mad_rate_per_s(build) -> float:
+    """32-bit integer multiply-adds a second that the card issues, measured:
+    independent `mad.lo.u32` chains on every SM (MAD_PROBE above)."""
+    src = build.BUILD_DIR / "mad_rate_probe.cu"
+    src.parent.mkdir(parents=True, exist_ok=True)
+    src.write_text(MAD_PROBE)
+    nvcc = shutil.which("nvcc") or str(build.NVCC_DEFAULT)
+    subprocess.run([nvcc, *build.NVCC_FLAGS, "-shared", "-o", str(src.with_suffix(".so")), str(src)],
+                   check=True, capture_output=True, text=True, timeout=300)
+    lib = ctypes.CDLL(str(src.with_suffix(".so")))
+    lib.launch_mad_rate_probe.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    n_blocks, threads, iters = 132 * 16, 256, 4096
+    out = torch.zeros(n_blocks * threads, dtype=torch.int32, device="cuda")
+    src_words = torch.tensor([12345, 678], dtype=torch.int32, device="cuda")
+
+    def launch():
+        rc = lib.launch_mad_rate_probe(out.data_ptr(), src_words.data_ptr(), n_blocks, threads,
+                                       iters, torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"mad_rate_probe: launch failed ({rc})")
+
+    return n_blocks * threads * iters * 8 / (cuda_ms(launch, 5) * 1e-3)
+
+
+def bound(name: str, args, ops_per_s: float) -> tuple[float, str]:
+    """Least time for the work these inputs need: (ms, "bytes"|"operations").
+    Bytes: every input read once and every output written once, over the
+    card's memory rate. Operations: the Montgomery products of the function,
+    OPS_PER_MONT_MUL 32-bit multiplies each, over the measured multiply rate."""
+    nbytes = sum(a.numel() * 4 for a in args if isinstance(a, torch.Tensor))
     if name == "to_niels_xy":
         M = args[0].shape[-1]
         nbytes += 3 * 16 * M * 4
@@ -137,25 +205,41 @@ def bound(name: str, args) -> tuple[float, str]:
         _, _, L, W = args[0].shape
         nbytes += (64 * L * W + 64 * W + W) * 4
         muls = 7 * L * W
+    elif name == "accumulate_scan_gather":
+        _, _, ids, K, B = args
+        L, W = ids.shape
+        # The row table read once (the card's L2 holds it over the K
+        # re-reads of each row). Outputs: final_acc, final_id, partial.
+        nbytes += (64 * W + W + 64 * K * B) * 4
+        muls = 7 * L * W
     elif name == "padd_masked":
         nbytes += args[0].numel() * 4
         muls = 9 * int((args[2] != 0).sum())
     elif name == "padd":
         nbytes += args[0].numel() * 4
         muls = 9 * args[0].shape[-1]
-    else:  # grouped_running_sum
+    elif name == "reduce_finish":
+        T, _, K, doublings = args
+        G = T.shape[-1] // K
+        nbytes += 2 * 64 * K * 4
+        # sum_g g*T_g (2G - 1 adds), sum_g U_g (G - 1), the doublings (8
+        # products each), one add and four from_mont, per window.
+        muls = K * (9 * (3 * G - 2) + 8 * doublings + 9 + 4)
+    else:  # grouped_running_sum: the serial chain's adds are the least work
         Gs, _, _, W = args[0].shape
         nbytes += 2 * 64 * W * 4
         muls = 9 * (2 * Gs - 1) * W
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = muls * OPS_PER_MONT_MUL / OPS_PER_S * 1e3
+    t_ops = muls * OPS_PER_MONT_MUL / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def profile_call(label: str, fn, warm_ms: float, top: int = 12) -> None:
     """Where one warm 2^20 call's device time goes: the busiest device ops,
     the number of device launches, and the device's busy share of the
-    unprofiled warm wall time."""
+    unprofiled warm wall time. Fails if gather kernels take more than 2 ms:
+    the scan gathers its rows itself, and the plain row gather that fed the
+    dense scan took 12.6 ms a call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -173,6 +257,9 @@ def profile_call(label: str, fn, warm_ms: float, top: int = 12) -> None:
           f"(idle share {1 - busy_ms / warm_ms:.3f}), {sum(e.count for e in events)} device launches")
     for e in sorted(events, key=dev_us, reverse=True)[:top]:
         print(f"profile {label}:   {dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+    gather_ms = sum(dev_us(e) for e in events if "gather" in e.key and "accumulate_scan" not in e.key) / 1e3
+    print(f"profile {label}: plain gather kernels {gather_ms:.3f} ms")
+    check(gather_ms < 2.0, f"{label}: plain gather kernels take {gather_ms:.3f} ms")
 
 
 def drive(label: str, pk, fn, must: tuple, must_not: tuple):
@@ -217,7 +304,11 @@ def main() -> int:
     for kname, line in sorted(build.ptxas_report().items()):
         print(f"ptxas {kname}: {line}")
 
-    # 3. each kernel against its plain version at the main path's shapes
+    # 3. the multiply rate, then each kernel against its plain version at the
+    # main path's shapes
+    ops_per_s = mad_rate_per_s(build)
+    print(f"mad.lo.u32 rate: {ops_per_s / 1e12:.3f} T/s measured: the peak of the operations "
+          f"bounds below [{smi}]")
     gen = torch.Generator().manual_seed(20)
     inputs = kernel_inputs(gen, dev)
     scan_mma = lambda p, i: pk.accumulate_scan(p, i, use_mma=True)
@@ -234,6 +325,10 @@ def main() -> int:
         "to_niels": (pk.to_niels, pk.to_niels_plain, padd_py.format(493), padd_cu, 20),
         "accumulate_scan_mma": (scan_mma, scan_mma_plain, PALLAS + "field_kernels_mxu.py:125",
                                 mma_cu, 3),
+        "accumulate_scan_gather": (pk.accumulate_scan_gather, pk.accumulate_scan_gather_plain,
+                                   padd_py.format(258), padd_cu, 3),
+        "reduce_finish": (pk.reduce_finish, pk.reduce_finish_plain,
+                          "webgpu_msm_tpu/ops/pippenger.py:441", padd_cu, 10),
     }
     check(tuple(kernels) == pk.KERNELS, "the kernel table does not list the package's kernels")
     # Load each plain version's torch kernels once at a small shape, so its
@@ -249,11 +344,8 @@ def main() -> int:
         err = max_abs_err(got, want)
         check(err == 0, f"{kname}: kernel differs from its plain version (max abs err {err})")
         del got, want
-        if kname == "grouped_running_sum":  # the second pass's shape too
-            a2 = inputs["grouped_running_sum pass 2"]
-            check(max_abs_err(kern(*a2), plain(*a2)) == 0, f"{kname} pass 2 differs")
         ms = cuda_ms(lambda: kern(*args), reps)
-        bound_ms, bound_by = bound(kname, args)
+        bound_ms, bound_by = bound(kname, args, ops_per_s)
         rows[kname] = {
             "name": kname, "route": "cuda", "source": source,
             "replaces": replaces, "launches": None, "max_abs_err": err,
@@ -263,6 +355,17 @@ def main() -> int:
         print(f"kernel {kname}: equal to plain on {tuple(args[0].shape)}; "
               f"{ms:.4f} ms (plain {plain_ms:.1f} ms, bound {bound_ms:.4f} ms by {bound_by}) "
               f"[{smi}]")
+        if kname == "grouped_running_sum":
+            # The shape of the second reduction pass too: the main path runs
+            # that pass inside reduce_finish, the kernel keeps the shape.
+            a2 = inputs["grouped_running_sum pass 2"]
+            check(max_abs_err(kern(*a2), plain(*a2)) == 0, f"{kname} pass 2 differs")
+            b2, by2 = bound(kname, a2, ops_per_s)
+            rows[kname].update(pass2_shape_ms=cuda_ms(lambda: kern(*a2), reps),
+                               pass2_shape_bound_ms=b2, pass2_shape_launches=0)
+            print(f"kernel {kname}: equal to plain on {tuple(a2[0].shape)} (a shape no path "
+                  f"launches); {rows[kname]['pass2_shape_ms']:.4f} ms (bound {b2:.4f} ms by {by2}) "
+                  f"[{smi}]")
         torch.cuda.empty_cache()
     scan_args = inputs["accumulate_scan"]
     del inputs
@@ -365,9 +468,10 @@ def main() -> int:
         print(f"compute_msm_batch 2^16, {label}: 2 jobs equal PINNED[16] / the wire path in "
               f"{ms / 1e3:.3f} s; launches {counts} [{smi}]")
 
-    # 4f. the A/B path of the tensor-core scan: no compute_msm path selects
-    # it; its entry point is this comparison at the production shape, the
-    # CIOS scan and the tensor-core scan in turns, required equal.
+    # 4f. the A/B path of the dense scans (the TPU kernel's contract, with
+    # `staged`): no compute_msm path selects them; their entry point is this
+    # comparison at the production shape, the CIOS scan and the tensor-core
+    # scan in turns, required equal.
     def scan_ab():
         times = {False: [], True: []}
         outs = {}
@@ -379,11 +483,12 @@ def main() -> int:
 
     ab_kernels = ("accumulate_scan", "accumulate_scan_mma")
     times, _, counts = drive("scan A/B", pk, scan_ab, ab_kernels, others(*ab_kernels))
-    rows["accumulate_scan_mma"]["launches"] = counts["accumulate_scan_mma"]
+    for kname in ab_kernels:  # the dense scans: on no compute_msm path since the gathering scan
+        rows[kname]["launches"] = counts[kname]
     print(f"scan A/B {tuple(scan_args[0].shape)}: tensor-core scan equals CIOS scan on all outputs; "
           f"CIOS {min(times[False]):.4f} ms, tensor-core {min(times[True]):.4f} ms "
           f"(runs {times[False]} / {times[True]}); launches {counts}; "
-          f"no compute_msm path launches accumulate_scan_mma [{smi}]")
+          f"no compute_msm path launches either [{smi}]")
     del scan_args
 
     # 5. summary lines

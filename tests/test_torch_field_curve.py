@@ -184,7 +184,7 @@ def test_split_windows_matches_jax(w, signed):
 
 
 def test_cuda_constants_match_oracle():
-    """The limb constants written into field.cuh are p, R, R^2, 2d*R,
+    """The limb constants written into field.cuh are p, R, 2R, R^2, 2d*R,
     2d*R^2 and -p^-1 mod 2^32, and there are no others."""
     src = (Path(__file__).resolve().parents[1]
            / "webgpu_msm_tpu_torch/ops/kernels/csrc/field.cuh").read_text()
@@ -196,10 +196,11 @@ def test_cuda_constants_match_oracle():
 
     assert limbs_of("P_L") == F.P
     assert limbs_of("R_L") == F.R_MOD_P
+    assert limbs_of("TWO_R_L") == 2 * F.R % F.P
     assert limbs_of("R2_L") == F.R2_MOD_P
     assert limbs_of("TWO_D_R_L") == 2 * F.EDWARDS_D * F.R % F.P
     assert limbs_of("TWO_D_R2_L") == 2 * F.EDWARDS_D * F.R2_MOD_P % F.P
     assert set(re.findall(r"__constant__ u32 (\w+)\[8\]", src)) == {
-        "P_L", "R_L", "R2_L", "TWO_D_R_L", "TWO_D_R2_L"}
+        "P_L", "R_L", "TWO_R_L", "R2_L", "TWO_D_R_L", "TWO_D_R2_L"}
     n0 = int(re.search(r"constexpr u32 N0 = (0x[0-9a-f]+)u;", src).group(1), 16)
     assert n0 == F.N0_INV_32

@@ -48,6 +48,22 @@ def _inputs(name, rng, dev, width=300):
         ids |= rng.integers(0, 2, size=(L, width)).astype(np.uint32) << 31
         niels = rand_planes(rng, (3,), L * width).reshape(3, 16, L, width)
         return (t(niels[:, 0::2] | (niels[:, 1::2] << 16)), t(ids))
+    if name == "accumulate_scan_gather":
+        # `width` lanes as K windows of C lanes; each window's ids sorted.
+        K, L, B = (3 if width % 3 == 0 else 1), 12, 40
+        C = width // K
+        M = C * L
+        digits = rng.integers(0, B, size=(K, M)).astype(np.uint32)
+        perm = np.argsort(digits, axis=1, kind="stable").astype(np.uint32)
+        ids = np.take_along_axis(digits, perm.astype(np.int64), axis=1)
+        ids |= rng.integers(0, 2, size=(K, M)).astype(np.uint32) << 31
+        lanes = lambda a: a.reshape(K, C, L).transpose(2, 0, 1).reshape(L, width).copy()
+        niels = rand_planes(rng, (3,), M)
+        rows = (niels[:, 0::2] | (niels[:, 1::2] << 16)).reshape(24, M).T.copy()
+        return (t(rows), t(lanes(perm)), t(lanes(ids)), K, B)
+    if name == "reduce_finish":
+        return (t(rand_planes(rng, (4,), width)), t(rand_planes(rng, (4,), width)),
+                3 if width % 3 == 0 else 1, 5)
     if name == "padd_masked":
         return (t(rand_planes(rng, (4,), width)), t(rand_planes(rng, (4,), width)),
                 t(rng.integers(0, 2, size=width).astype(np.uint32)))
@@ -80,6 +96,39 @@ def test_kernel_matches_plain_on_card(cuda, name):
         assert g.device.type == "cuda" and torch.equal(g, w)
 
 
+@pytest.mark.parametrize("width", [31, 300, 2049])
+@pytest.mark.parametrize("name", ["accumulate_scan_gather", "grouped_running_sum", "reduce_finish"])
+def test_redesigned_kernels_at_ragged_widths(cuda, name, width):
+    """Widths that are no multiple of a block's lanes: the gathering scan
+    (64 lanes a block, whole warps shadowing the last lane), the tree sum
+    and the finish (31 and 683 groups a window: chunks of several elements
+    a thread)."""
+    args = _inputs(name, np.random.default_rng(width), cuda, width=width)
+    kernel, plain = _kernel_and_plain(name)
+    for g, w in zip(kernel(*args), plain(*args)):
+        assert g.device.type == "cuda" and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("Gs,width,plan", [
+    (37, 50, (64, 1)),     # more threads than elements
+    (300, 50, (256, 2)),   # the most threads a lane, chunks of 2
+    (37, 2049, (16, 3)),   # many lanes: few threads each, chunks of 3
+    (129, 5000, (4, 33)),  # long chunks
+    (2, 50, (2, 1)),
+])
+def test_tree_sum_thread_plans_on_card(cuda, Gs, width, plan):
+    """The splits of a lane over threads that `_group_plan` takes as the
+    lanes and their lengths vary; the finish over one window of `width`
+    groups (128 threads, chunks of up to 40)."""
+    assert pk._group_plan(Gs, width, pk.GROUP_THREADS) == plan
+    s = planes_from_numpy(rand_planes(np.random.default_rng(Gs), (Gs, 4), width), cuda)
+    for g, w in zip(pk.grouped_running_sum(s), pk.grouped_running_sum_plain(s)):
+        assert torch.equal(g, w)
+    T, U = s[0].contiguous(), s[-1].contiguous()
+    for g, w in zip(pk.reduce_finish(T, U, 1, 4), pk.reduce_finish_plain(T, U, 1, 4)):
+        assert torch.equal(g, w)
+
+
 def test_compute_msm_on_card_matches_oracle(cuda):
     pts = fixtures.distinct_points_fast(48, seed=51)
     scalars = fixtures.random_scalars(48, seed=52)
@@ -90,8 +139,10 @@ def test_compute_msm_on_card_matches_oracle(cuda):
         config=MSMConfig(window_size=8, n_chunks=4, chunk_len=4), device=cuda,
     )
     assert (got.x, got.y) == want
-    assert all(pk.launches[name] > 0 for name in pk.KERNELS[:5]), pk.launches
-    assert pk.launches["to_niels"] == pk.launches["accumulate_scan_mma"] == 0
+    used = ("to_niels_xy", "accumulate_scan_gather", "padd_masked", "padd",
+            "grouped_running_sum", "reduce_finish")
+    assert all(pk.launches[name] > 0 for name in used), pk.launches
+    assert all(pk.launches[name] == 0 for name in pk.KERNELS if name not in used), pk.launches
 
 
 def test_tensor_core_scan_equals_cios_scan_on_card(cuda):
@@ -121,4 +172,4 @@ def test_msm_plan_on_card_matches_oracle(cuda):
     assert pk.launches["to_niels_xy"] == 3
     got = plan.msm_batch([convert.bigints_to_u32_be(jobs[0]), jobs[1]])
     assert [(r.x, r.y) for r in got] == [curve.to_affine(msm.msm(pts, sc, 8)) for sc in jobs]
-    assert pk.launches["to_niels_xy"] == 3 and pk.launches["accumulate_scan"] == 6
+    assert pk.launches["to_niels_xy"] == 3 and pk.launches["accumulate_scan_gather"] == 6

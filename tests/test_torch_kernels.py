@@ -14,11 +14,14 @@ import pytest
 import torch
 
 from webgpu_msm_tpu.ops import curve_ops as jcurve
+from webgpu_msm_tpu.oracle import curve as oc
 from webgpu_msm_tpu.oracle import field as F
+from webgpu_msm_tpu.utils import fixtures
 
 from webgpu_msm_tpu_torch.ops.kernels import build
 from webgpu_msm_tpu_torch.ops.kernels import padd_kernels as pk
-from webgpu_msm_tpu_torch.utils.interop import planes_from_numpy, planes_to_numpy
+from webgpu_msm_tpu_torch.utils.interop import (
+    affine_from_planes, mont_planes_from_points, planes_from_numpy, planes_to_numpy)
 
 # The tensors here are tiny: extra intra-op threads only contend with the
 # other test workers.
@@ -83,17 +86,24 @@ def test_padd_masked_plain_matches_jax():
 @pytest.mark.parametrize("Gs", [1, 3, 16])
 def test_grouped_running_sum_plain_matches_jax_chain(Gs):
     """T = run after r = Gs-1..0; U adds run on every step but the last:
-    the same chain of JAX curve_ops.add calls, digit for digit."""
-    rng = np.random.default_rng(Gs)
-    s = rand_planes(rng, (Gs, 4), 6)
+    the same sums as that chain of JAX curve_ops.add calls. The port adds
+    in the order of its tree, and extended coordinates are not canonical,
+    so the two agree as points, not digit for digit. Lane 0 is all identity,
+    and lane 1 has identity elements."""
+    n_lanes = 6
+    pts = fixtures.distinct_points_fast(Gs * n_lanes, seed=80 + Gs)
+    pts[:: n_lanes] = [oc.IDENTITY] * Gs
+    pts[1] = oc.IDENTITY
+    s = mont_planes_from_points(pts).reshape(4, 16, Gs, n_lanes).transpose(2, 0, 1, 3).copy()
     T, U = pk.grouped_running_sum(planes_from_numpy(s))
-    run = u = jcurve.identity((6,))
+    run = u = jcurve.identity((n_lanes,))
     for i in range(Gs):
         run = jcurve.add(run, jax_pts(s[Gs - 1 - i]))
         if i != Gs - 1:
             u = jcurve.add(u, run)
-    np.testing.assert_array_equal(planes_to_numpy(T), np.asarray(run.stacked()))
-    np.testing.assert_array_equal(planes_to_numpy(U), np.asarray(u.stacked()))
+    assert affine_from_planes(planes_to_numpy(T)) == affine_from_planes(np.asarray(run.stacked()))
+    assert affine_from_planes(planes_to_numpy(U)) == affine_from_planes(np.asarray(u.stacked()))
+    assert affine_from_planes(planes_to_numpy(T))[0] == oc.to_affine(oc.IDENTITY)
 
 
 # ---- accumulate_scan against a per-lane Python model ----------------------
@@ -182,9 +192,10 @@ def test_wrappers_reject_bad_tensors(bad):
 
 def test_every_kernel_has_a_count_and_a_plain_version():
     assert pk.KERNELS == ("to_niels_xy", "accumulate_scan", "padd_masked", "padd",
-                          "grouped_running_sum", "to_niels", "accumulate_scan_mma")
+                          "grouped_running_sum", "to_niels", "accumulate_scan_mma",
+                          "accumulate_scan_gather", "reduce_finish")
     assert set(pk.launches) == set(pk.KERNELS)
-    for name in pk.KERNELS[:6]:
+    for name in pk.KERNELS[:6] + pk.KERNELS[7:]:
         assert callable(getattr(pk, name)) and callable(getattr(pk, name + "_plain"))
 
 

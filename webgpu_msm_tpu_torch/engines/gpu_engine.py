@@ -111,8 +111,7 @@ def _wire_batch_impl(xy_be, scalars_be, carry_st, **static):
 
 def _finish_impl(carry_st: torch.Tensor) -> torch.Tensor:
     """Bucket carry -> window sums [4, 16, K] int64, plain domain."""
-    wsums = pippenger.reduce_buckets(carry_st)
-    return torch.stack([field_ops.from_mont(wsums[i]) for i in range(4)])
+    return limbs.as_i64(pippenger.reduce_and_finish(carry_st)[0])
 
 
 def _finish_affine_impl(carry_st: torch.Tensor) -> torch.Tensor:

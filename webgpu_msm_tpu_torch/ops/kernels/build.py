@@ -36,7 +36,9 @@ SIGNATURES = {
     "launch_padd_masked": (_P, _P, _P, _P, _I, _P),
     "launch_accumulate_scan": (_P, _P, _P, _P, _P, _I, _I, _P),
     "launch_accumulate_scan_mma": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
-    "launch_grouped_running_sum": (_P, _P, _P, _I, _I, _P),
+    "launch_accumulate_scan_gather": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "launch_grouped_running_sum": (_P, _P, _P, _I, _I, _I, _P),
+    "launch_reduce_finish": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 _lib: ctypes.CDLL | None = None

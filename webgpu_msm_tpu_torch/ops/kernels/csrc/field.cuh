@@ -3,7 +3,8 @@
 // Replaces the in-kernel digit arithmetic of the JAX package's
 // ops/pallas/field_kernels.py (kmont_mul, kmont_mul_const, kadd, ksub,
 // kneg, kmul_2d, _cond_sub_p) and the point formulas of
-// ops/pallas/padd_kernels.py (_unified_add, _niels_add).
+// ops/pallas/padd_kernels.py (_unified_add, _niels_add), with the doubling
+// of ops/curve_ops.py.
 //
 // The TPU code works on 16 lazy 16-bit digits because its vector unit has
 // no 32x32->64 multiply. Here a field element is 8 little-endian 32-bit
@@ -22,13 +23,15 @@ namespace msm {
 typedef uint32_t u32;
 typedef uint64_t u64;
 
-// p, R mod p, R^2 mod p, 2d*R mod p and 2d*R^2 mod p (d = 3021) as 32-bit
-// limbs, least significant first; N0 = -p^-1 mod 2^32. `static`: every
+// p, R mod p, 2R mod p, R^2 mod p, 2d*R mod p and 2d*R^2 mod p (d = 3021) as
+// 32-bit limbs, least significant first; N0 = -p^-1 mod 2^32. `static`: every
 // source that includes this header keeps its own copy.
 static __constant__ u32 P_L[8] = {0x00000001u, 0x0a118000u, 0xd0000001u, 0x59aa76feu,
                            0x5c37b001u, 0x60b44d1eu, 0x9a2ca556u, 0x12ab655eu};
 static __constant__ u32 R_L[8] = {0xfffffff3u, 0x7d1c7fffu, 0x6ffffff2u, 0x7257f50fu,
                            0x512c0feeu, 0x16d81575u, 0x2bbb9a9du, 0x0d4bda32u};
+static __constant__ u32 TWO_R_L[8] = {0xffffffe5u, 0xf0277fffu, 0x0fffffe3u, 0x8b057320u,
+                               0x46206fdbu, 0xccfbddccu, 0xbd4a8fe3u, 0x07ec4f05u};
 static __constant__ u32 R2_L[8] = {0xb861857bu, 0x25d577bau, 0x8860591fu, 0xcc2c27b5u,
                             0xe5dc8593u, 0xa7cc008fu, 0xeff1c939u, 0x011fdae7u};
 static __constant__ u32 TWO_D_R_L[8] = {0xfffebc5fu, 0x967e7fffu, 0x2ffeafa4u, 0x87a7a94fu,
@@ -174,6 +177,27 @@ __device__ __forceinline__ void unified_add(Pt& r, const Pt& p, const Pt& q) {
   fsub(f, d, c);
   fadd(g, d, c);
   fadd(h, b, a);
+  mont_mul(r.x, e, f);
+  mont_mul(r.y, g, h);
+  mont_mul(r.t, e, h);
+  mont_mul(r.z, f, g);
+}
+
+// Dedicated doubling dbl-2008-hwcd with a = -1 (curve_ops.double): 4
+// squarings and 4 products. r may alias p.
+__device__ __forceinline__ void point_double(Pt& r, const Pt& p) {
+  u32 a[8], b[8], c[8], d[8], e[8], f[8], g[8], h[8];
+  mont_mul(a, p.x, p.x);
+  mont_mul(b, p.y, p.y);
+  mont_mul(c, p.z, p.z);
+  fadd(c, c, c);
+  fneg(d, a);
+  fsub(h, d, b);
+  fadd(e, p.x, p.y);
+  mont_mul(e, e, e);
+  fadd(e, e, h);
+  fadd(g, d, b);
+  fsub(f, g, c);
   mont_mul(r.x, e, f);
   mont_mul(r.y, g, h);
   mont_mul(r.t, e, h);

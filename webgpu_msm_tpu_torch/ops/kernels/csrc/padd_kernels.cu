@@ -6,12 +6,16 @@
 // in ops/kernels/padd_kernels.py can hold each against its plain PyTorch
 // version digit for digit. Every tensor is int32 holding u32 bits.
 //
-// The design is deliberately simple for now: one thread per lane, field
-// elements in registers (field.cuh), no shared memory, no TMA, no wgmma.
-// Thread w touches element w of every plane, so a warp's loads and stores
-// are coalesced; the ragged last block is masked, so no width padding.
-// Where a Pallas grid carried state in VMEM scratch from one step to the
-// next, that state is a register loop inside one thread here.
+// The elementwise kernels and the dense scan are simple: one thread per
+// lane, field elements in registers (field.cuh), thread w on element w of
+// every plane, so a warp's loads and stores are coalesced; the ragged last
+// block is masked, so no width padding. Where a Pallas grid carried state in
+// VMEM scratch from one step to the next, that state is a register loop
+// inside one thread here. The two kernels the 2^20 call spent most on were
+// designed again for this card: accumulate_scan_gather (four threads a lane,
+// rows gathered in the kernel, bucket partial sums in place of the dense
+// staged tensor) and the tree reduction of grouped_running_sum and
+// reduce_finish (several threads a lane through shared memory).
 
 #include <cuda_runtime.h>
 
@@ -162,30 +166,290 @@ extern "C" __global__ void accumulate_scan_kernel(const int32_t* __restrict__ pt
 }
 
 // ---------------------------------------------------------------------------
-// grouped_running_sum. Replaces _grouped_sum_kernel (padd_kernels.py,
-// grouped_running_sum): over s [Gs][4][16][W], per lane, walk r = Gs-1..0
-// with run += s[r] and, on every step but the last, U += run; then
-// T = run = sum_r s[r] and U = sum_r r*s[r]. run and U stay in registers.
-// Per lane: 2*Gs - 1 unified adds, 256*Gs B read and 512 B written; bound
-// by the products (a few thousand lanes do not fill the card).
+// accumulate_scan_gather. The counterpart of _accumulate_scan_kernel
+// (padd_kernels.py, accumulate_scan) on every MSM path: the same scan, lane
+// by lane and add by add, so final_acc and final_id are those of
+// accumulate_scan digit for digit, but
+//   - it gathers for itself: rows [M][24] holds each point's packed Niels
+//     limbs (y-x, y+x, 2d*t; 96 B), perm [L][W] the row of lane w at step l.
+//     A batch's rows are 25 MB and stay in the 50 MB L2 over the K re-reads;
+//     no gathered [3][8][L][W] tensor is ever made;
+//   - it writes only what is read: where the bucket id changes at a step
+//     l > 0, the accumulator as it stood is the in-lane partial sum of bucket
+//     acc_id and goes to partial [4][16][K][B] at (w / C, acc_id). The caller
+//     fills partial with the identity; sorted ids give each bucket at most
+//     one writer. That replaces staged [4][16][L][W], 1.34 GB a launch;
+//   - four threads share a lane. On one thread a lane the card holds 310
+//     threads an SM on one chain of 7 dependent products a step, and the
+//     products' latency, not their issue rate, sets the time. Thread `role`
+//     of a lane owns coordinate `role` of the accumulator (X, Y, T, Z). A
+//     step is two rounds of one product a thread: A = (Y-X)*ym, B = (Y+X)*yp,
+//     C = T*td and D = Z*2R (= 2Z), then, with A..D passed round by shuffle,
+//     X = E*F, Y = G*H, T = E*H, Z = F*G. Each thread loads its own 32 B of
+//     the row one step ahead, so the perm -> row latency is off the chain.
+// Lanes beyond W shadow lane W-1, so that warps are whole for the shuffles,
+// and store nothing. Per lane-step: 8 products, 104 B read; bound by the
+// products.
 // ---------------------------------------------------------------------------
-extern "C" __global__ void grouped_running_sum_kernel(const int32_t* __restrict__ s,
-                                                      int32_t* __restrict__ T,
-                                                      int32_t* __restrict__ U, int Gs,
-                                                      int W) {
-  const int w = blockIdx.x * blockDim.x + threadIdx.x;
-  if (w >= W) return;
-  Pt run, u, sr;
-  set_identity(run);
-  set_identity(u);
-  for (int i = 0; i < Gs; i++) {
-    const int r = Gs - 1 - i;
-    load_pt(sr, s + (size_t)r * 64 * W, (size_t)W, w);
-    unified_add(run, run, sr);
-    if (i != Gs - 1) unified_add(u, u, run);
+extern "C" __global__ void __launch_bounds__(256)
+accumulate_scan_gather_kernel(const int4* __restrict__ rows, const int32_t* __restrict__ perm,
+                              const int32_t* __restrict__ ids, int32_t* __restrict__ partial,
+                              int32_t* __restrict__ final_acc, int32_t* __restrict__ final_id,
+                              int L, int W, int C, int B) {
+  const int gt = blockIdx.x * blockDim.x + threadIdx.x;
+  const int role = gt & 3;
+  const bool live = (gt >> 2) < W;
+  const int w = live ? (gt >> 2) : W - 1;
+  const int base = (threadIdx.x & 31) & ~3;  // this lane's role-0 thread in the warp
+  const size_t KB = (size_t)(W / C) * B;
+  const size_t bucket0 = (size_t)(w / C) * B;
+  const bool is_one = (role & 1) != 0;  // the identity: Y and Z are R, X and T are 0
+  u32 own[8];
+#pragma unroll
+  for (int q = 0; q < 8; q++) own[q] = is_one ? R_L[q] : 0u;
+  u32 acc_id = 0xffffffffu;
+
+  // Round 1's second operand: role 0 takes y-x and role 1 y+x (the other way
+  // round under the sign flag), role 2 takes 2d*t, role 3 the constant 2R.
+  auto load_part = [&](int4 r[2], int p, u32 raw) {
+    const bool neg = (raw >> 31) != 0;
+    const int part = role == 2 ? 2 : ((role == 0) != neg ? 0 : 1);
+    if (role != 3) {
+      const int4* src = rows + (size_t)p * 6 + part * 2;
+      r[0] = __ldg(src);
+      r[1] = __ldg(src + 1);
+    }
+  };
+  int4 nxt[2] = {make_int4(0, 0, 0, 0), make_int4(0, 0, 0, 0)};
+  u32 raw_nxt = (u32)ids[w];
+  int p2 = L > 1 ? perm[W + w] : 0;
+  u32 raw2 = L > 1 ? (u32)ids[W + w] : 0u;
+  load_part(nxt, perm[w], raw_nxt);
+  for (int l = 0; l < L; l++) {
+    const int4 c0 = nxt[0], c1 = nxt[1];
+    const u32 raw = raw_nxt;
+    if (l + 1 < L) {  // step l + 1's operand, then step l + 2's row and id
+      load_part(nxt, p2, raw2);
+      raw_nxt = raw2;
+    }
+    if (l + 2 < L) {
+      p2 = perm[(size_t)(l + 2) * W + w];
+      raw2 = (u32)ids[(size_t)(l + 2) * W + w];
+    }
+    const u32 id = raw & 0x7fffffffu;
+    const bool neg = (raw >> 31) != 0;
+    u32 opb[8] = {(u32)c0.x, (u32)c0.y, (u32)c0.z, (u32)c0.w,
+                  (u32)c1.x, (u32)c1.y, (u32)c1.z, (u32)c1.w};
+    u32 nb[8];
+    fneg(nb, opb);
+#pragma unroll
+    for (int q = 0; q < 8; q++) {
+      if (role == 2 && neg) opb[q] = nb[q];
+      if (role == 3) opb[q] = TWO_R_L[q];
+    }
+    if (id != acc_id) {  // a run ends: its in-lane sum goes to its bucket
+      if (acc_id < (u32)B && live)
+        store_fp(partial + (size_t)role * 16 * KB, KB, bucket0 + acc_id, own);
+#pragma unroll
+      for (int q = 0; q < 8; q++) own[q] = is_one ? R_L[q] : 0u;
+    }
+    acc_id = id;
+    u32 other[8], dif[8], sum[8], u[8], r1[8];
+#pragma unroll
+    for (int q = 0; q < 8; q++) other[q] = __shfl_xor_sync(0xffffffffu, own[q], 1);
+    fsub(dif, other, own);  // role 0: Y - X
+    fadd(sum, own, other);  // role 1: Y + X
+#pragma unroll
+    for (int q = 0; q < 8; q++) u[q] = role == 0 ? dif[q] : (role == 1 ? sum[q] : own[q]);
+    mont_mul(r1, u, opb);
+    u32 a[8], b[8], c[8], d[8], e[8], f[8], g[8], h[8], lhs[8], rhs[8];
+#pragma unroll
+    for (int q = 0; q < 8; q++) {
+      a[q] = __shfl_sync(0xffffffffu, r1[q], base);
+      b[q] = __shfl_sync(0xffffffffu, r1[q], base + 1);
+      c[q] = __shfl_sync(0xffffffffu, r1[q], base + 2);
+      d[q] = __shfl_sync(0xffffffffu, r1[q], base + 3);
+    }
+    fsub(e, b, a);
+    fsub(f, d, c);
+    fadd(g, d, c);
+    fadd(h, b, a);
+#pragma unroll
+    for (int q = 0; q < 8; q++) {
+      lhs[q] = role == 1 ? g[q] : (role == 3 ? f[q] : e[q]);
+      rhs[q] = role == 0 ? f[q] : (role == 3 ? g[q] : h[q]);
+    }
+    mont_mul(own, lhs, rhs);
   }
-  store_pt(T, (size_t)W, w, run);
-  store_pt(U, (size_t)W, w, u);
+  if (live) {
+    store_fp(final_acc + (size_t)role * 16 * W, (size_t)W, w, own);
+    if (role == 0) final_id[w] = (int32_t)acc_id;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// tree_sums: T = sum_r s_r and U = sum_r r * s_r over one lane's Gs points,
+// by P threads working together (P a power of two). The block holds
+// LB = blockDim.x / P lanes side by side: thread tid is thread t = tid / LB
+// of lane tid % LB, so neighbouring threads read neighbouring lanes.
+// `elem(p, r)` gives element r of this thread's lane, the identity for
+// r >= Gs. Thread t owns the q = ceil(Gs / P) elements from t * q on:
+//   1. its chunk sum, q - 1 adds from the top element down;
+//   2. an inclusive suffix scan of the chunk sums over the threads
+//      (log2 P levels through shared memory): run at the chunk's first
+//      element. T is thread 0's;
+//   3. U's terms, run_r for every r >= 1 of the chunk: the scan's value
+//      itself where q == 1, else a walk down the chunk from the next
+//      thread's scan value;
+//   4. a tree fold of the terms over the threads (log2 P levels).
+// A chain of q - 1 + 2 * log2 P (+ 2q where q > 1) adds in place of the
+// serial 2 * Gs - 1. Every add is done in this fixed order, padding
+// included, and the plain version (_tree_sums in padd_kernels.py) adds in
+// the same order: extended coordinates are not canonical, so only then are
+// the digits equal. All threads of the block must call it; T and U are
+// valid in the threads with t == 0. `sm` holds 32 words a thread.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void sm_put(u32* sm, int n, int slot, const Pt& p) {
+#pragma unroll
+  for (int i = 0; i < 8; i++) {
+    sm[i * n + slot] = p.x[i];
+    sm[(8 + i) * n + slot] = p.y[i];
+    sm[(16 + i) * n + slot] = p.t[i];
+    sm[(24 + i) * n + slot] = p.z[i];
+  }
+}
+
+__device__ __forceinline__ void sm_get(Pt& p, const u32* sm, int n, int slot) {
+#pragma unroll
+  for (int i = 0; i < 8; i++) {
+    p.x[i] = sm[i * n + slot];
+    p.y[i] = sm[(8 + i) * n + slot];
+    p.t[i] = sm[(16 + i) * n + slot];
+    p.z[i] = sm[(24 + i) * n + slot];
+  }
+}
+
+template <class Elem>
+__device__ __forceinline__ void tree_sums(Pt& T, Pt& U, Elem elem, int Gs, int P, u32* sm) {
+  const int n = blockDim.x, tid = threadIdx.x, LB = n / P, t = tid / LB;
+  const int q = (Gs + P - 1) / P;
+  Pt x;
+  elem(T, t * q + q - 1);
+#pragma unroll 1
+  for (int j = q - 2; j >= 0; j--) {
+    elem(x, t * q + j);
+    unified_add(T, x, T);
+  }
+#pragma unroll 1
+  for (int d = 1; d < P; d <<= 1) {
+    sm_put(sm, n, tid, T);
+    __syncthreads();
+    if (t + d < P) sm_get(x, sm, n, tid + d * LB);
+    __syncthreads();
+    if (t + d < P) unified_add(T, T, x);
+  }
+  if (q == 1) {
+    U = T;
+    if (t == 0) set_identity(U);
+  } else {
+    Pt run;
+    sm_put(sm, n, tid, T);
+    __syncthreads();
+    if (t + 1 < P) sm_get(run, sm, n, tid + LB);
+    else set_identity(run);
+    __syncthreads();
+#pragma unroll 1
+    for (int j = q - 1; j >= 0; j--) {
+      elem(x, t * q + j);
+      unified_add(run, run, x);
+      if (j == q - 1) U = run;
+      else if (t * q + j > 0) unified_add(U, U, run);
+    }
+  }
+#pragma unroll 1
+  for (int h = P >> 1; h >= 1; h >>= 1) {
+    sm_put(sm, n, tid, U);
+    __syncthreads();
+    if (t < h) sm_get(x, sm, n, tid + h * LB);
+    __syncthreads();
+    if (t < h) unified_add(U, U, x);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// grouped_running_sum. Replaces _grouped_sum_kernel (padd_kernels.py,
+// grouped_running_sum): over s [Gs][4][16][W], per lane, T = sum_r s[r] and
+// U = sum_r r * s[r]. The TPU kernel walks r = Gs-1..0 in one running sum
+// per lane; a few thousand lanes of 2 * Gs - 1 dependent adds leave this
+// card idle, so P threads share a lane (tree_sums above). The wrapper picks
+// P so that W * P threads about fill the card. Bytes are negligible
+// (256 * Gs B read, 512 B written a lane); bound by the products.
+// ---------------------------------------------------------------------------
+extern "C" __global__ void __launch_bounds__(256)
+grouped_running_sum_kernel(const int32_t* __restrict__ s, int32_t* __restrict__ T,
+                           int32_t* __restrict__ U, int Gs, int W, int P) {
+  extern __shared__ u32 sm[];
+  const int LB = blockDim.x / P;
+  const int w = blockIdx.x * LB + threadIdx.x % LB;
+  const bool live = w < W;
+  Pt t, u;
+  tree_sums(
+      t, u,
+      [&](Pt& p, int r) {
+        if (live && r < Gs) load_pt(p, s + (size_t)r * 64 * W, (size_t)W, w);
+        else set_identity(p);
+      },
+      Gs, P, sm);
+  if (live && threadIdx.x < LB) {
+    store_pt(T, (size_t)W, w, t);
+    store_pt(U, (size_t)W, w, u);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// reduce_finish. Replaces the plain XLA ops that end the JAX package's
+// reduce_buckets (ops/pippenger.py) after its second grouped_running_sum
+// call, and the from_mont of the finish stage. Input: the first pass's
+// T and U [4][16][K*G] (lane k * G + g). Block k reduces window k: P threads
+// take sum_g g * T_g (tree_sums' U output over the T lanes), P more take
+// sum_g U_g (its T output over the U lanes), side by side; then one thread
+// doubles the first `doublings` times (dbl-2008-hwcd), adds the second, and
+// writes the window sum in the Montgomery domain and, through a product
+// with 1, in the plain domain: [4][16][K] each. A few dozen lanes: bound by
+// the chain of adds, which the tree shortens from 2 * G - 1 to about
+// 2 * log2 P + 3 * ceil(G / P).
+// ---------------------------------------------------------------------------
+extern "C" __global__ void __launch_bounds__(256)
+reduce_finish_kernel(const int32_t* __restrict__ T, const int32_t* __restrict__ U,
+                     int32_t* __restrict__ out_plain, int32_t* __restrict__ out_mont, int G,
+                     int K, int P, int doublings) {
+  extern __shared__ u32 sm[];
+  const int k = blockIdx.x, tid = threadIdx.x;
+  const int32_t* src = (tid & 1) ? U : T;
+  const size_t stride = (size_t)K * G;
+  Pt tot, wsum;
+  tree_sums(
+      tot, wsum,
+      [&](Pt& p, int g) {
+        if (g < G) load_pt(p, src, stride, (size_t)k * G + g);
+        else set_identity(p);
+      },
+      G, P, sm);
+  // Thread 0 holds sum_g g * T_g in wsum; thread 1 holds sum_g U_g in tot.
+  sm_put(sm, blockDim.x, tid, tot);
+  __syncthreads();
+  if (tid != 0) return;
+  sm_get(tot, sm, blockDim.x, 1);
+#pragma unroll 1
+  for (int i = 0; i < doublings; i++) point_double(wsum, wsum);
+  unified_add(wsum, wsum, tot);
+  store_pt(out_mont, (size_t)K, k, wsum);
+  const u32 one[8] = {1u, 0u, 0u, 0u, 0u, 0u, 0u, 0u};
+  mont_mul(wsum.x, wsum.x, one);  // from_mont
+  mont_mul(wsum.y, wsum.y, one);
+  mont_mul(wsum.t, wsum.t, one);
+  mont_mul(wsum.z, wsum.z, one);
+  store_pt(out_plain, (size_t)K, k, wsum);
 }
 
 // ---------------------------------------------------------------------------
@@ -226,11 +490,33 @@ extern "C" int launch_accumulate_scan(const void* pts, const void* ids, void* st
   return (int)cudaGetLastError();
 }
 
+extern "C" int launch_accumulate_scan_gather(const void* rows, const void* perm,
+                                             const void* ids, void* partial, void* final_acc,
+                                             void* final_id, int L, int W, int C, int B,
+                                             void* stream) {
+  constexpr int kGatherThreads = 256;  // 64 lanes a block
+  accumulate_scan_gather_kernel<<<blocks(4 * W, kGatherThreads), kGatherThreads, 0,
+                                  (cudaStream_t)stream>>>(
+      (const int4*)rows, (const int32_t*)perm, (const int32_t*)ids, (int32_t*)partial,
+      (int32_t*)final_acc, (int32_t*)final_id, L, W, C, B);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int launch_grouped_running_sum(const void* s, void* T, void* U, int Gs, int W,
-                                          void* stream) {
-  grouped_running_sum_kernel<<<blocks(W, kScanThreads), kScanThreads, 0,
+                                          int P, void* stream) {
+  const int threads = P > kThreads ? P : kThreads, lanes = threads / P;
+  grouped_running_sum_kernel<<<blocks(W, lanes), threads, 128 * threads,
                                (cudaStream_t)stream>>>((const int32_t*)s, (int32_t*)T,
-                                                       (int32_t*)U, Gs, W);
+                                                       (int32_t*)U, Gs, W, P);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int launch_reduce_finish(const void* T, const void* U, void* out_plain,
+                                    void* out_mont, int G, int K, int P, int doublings,
+                                    void* stream) {
+  reduce_finish_kernel<<<K, 2 * P, 256 * P, (cudaStream_t)stream>>>(
+      (const int32_t*)T, (const int32_t*)U, (int32_t*)out_plain, (int32_t*)out_mont, G, K, P,
+      doublings);
   return (int)cudaGetLastError();
 }
 

@@ -1,4 +1,4 @@
-"""Wrappers, plain versions and launch counts of the seven point kernels.
+"""Wrappers, plain versions and launch counts of the nine point kernels.
 
 Each wrapper takes int32 tensors holding u32 bits, at the JAX package's
 layouts (`ops/pallas/padd_kernels.py`). A tensor on the CPU goes to the
@@ -19,11 +19,14 @@ from . import field_kernels_mma
 
 KERNELS = (
     "to_niels_xy", "accumulate_scan", "padd_masked", "padd", "grouped_running_sum",
-    "to_niels", "accumulate_scan_mma",
+    "to_niels", "accumulate_scan_mma", "accumulate_scan_gather", "reduce_finish",
 )
 launches: dict[str, int] = {name: 0 for name in KERNELS}
 
 SENTINEL = 0xFFFFFFFF  # initial scan id: no masked bucket id equals it
+CARD_THREADS = 132 * 256  # threads that about fill the card with the tree kernels
+GROUP_THREADS = 256  # most threads a lane of grouped_running_sum
+FINISH_THREADS = 128  # most threads a lane of reduce_finish (two lanes a block)
 
 
 def reset_launch_counts() -> None:
@@ -67,6 +70,11 @@ def _launch(name: str, fn: str, *args) -> None:
 
 def _pts(st: torch.Tensor) -> PointVec:
     return PointVec.from_stacked(limbs.as_i64(st))
+
+
+def identity_planes(shape: tuple, device) -> torch.Tensor:
+    """[4, 16, *shape] int32 identity points."""
+    return curve_ops.identity(shape, device).stacked().to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -166,6 +174,59 @@ def accumulate_scan(pts: torch.Tensor, ids: torch.Tensor, use_mma: bool = False)
 
 
 # ---------------------------------------------------------------------------
+# 8. accumulate_scan_gather: the scan of every MSM path. Packed rows [M, 24]
+#    (y-x, y+x, 2d*t limbs of each point), perm [L, W] (the row of lane w at
+#    step l) and ids [L, W], with W = K * C lanes, window-major ->
+#    (final_acc [4, 16, W], final_id [W], partial [4, 16, K * B]):
+#    accumulate_scan's final_acc and final_id, and in place of `staged` the
+#    in-lane partial sum of every bucket whose run ends inside a lane (the
+#    identity elsewhere). Each window's ids must be sorted along its lanes'
+#    steps (lane c of window k holds sorted positions c * L .. c * L + L - 1),
+#    so that a bucket's run ends in at most one place.
+# ---------------------------------------------------------------------------
+def accumulate_scan_gather_plain(rows: torch.Tensor, perm: torch.Tensor, ids: torch.Tensor,
+                                 n_windows: int, n_buckets: int):
+    """The row gather, `accumulate_scan_plain`, and the select of the staged
+    accumulators by the buckets' analytic end positions."""
+    (L, W), K, B = ids.shape, n_windows, n_buckets
+    C, dev = W // K, ids.device
+    pts = rows[perm.reshape(-1).to(torch.int64)].t().reshape(3, 8, L, W).contiguous()
+    final_acc, final_id, staged = accumulate_scan_plain(pts, ids)
+    sorted_ids = (limbs.as_i64(ids) & 0x7FFFFFFF).reshape(L, K, C).permute(1, 2, 0)
+    k_idx = torch.arange(K, device=dev).reshape(K, 1)
+    hist = torch.bincount((k_idx * B + sorted_ids.reshape(K, C * L)).reshape(-1), minlength=K * B)
+    e_pos = torch.cumsum(hist.reshape(K, B), dim=1)  # first sorted index past bucket b
+    # The accumulator before step e_pos holds bucket b's sum within that
+    # lane, unless the bucket is empty or ends exactly at a lane edge.
+    valid = (hist.reshape(K, B) > 0) & (e_pos % L != 0)
+    at = (e_pos % L) * W + k_idx * C + torch.clamp(e_pos // L, max=C - 1)
+    picked = staged.reshape(4, 16, L * W).index_select(2, at.reshape(-1))
+    partial = torch.where(valid.reshape(-1), picked, identity_planes((K * B,), dev))
+    return final_acc, final_id, partial
+
+
+def accumulate_scan_gather(rows: torch.Tensor, perm: torch.Tensor, ids: torch.Tensor,
+                           n_windows: int, n_buckets: int):
+    (L, W), M = ids.shape, rows.shape[0]
+    _shape("accumulate_scan_gather", rows, (M, 24))
+    _shape("accumulate_scan_gather", perm, (L, W))
+    if W % n_windows or n_buckets <= 0:
+        raise ValueError(f"accumulate_scan_gather: {W} lanes do not split into {n_windows} windows")
+    if not _on_card("accumulate_scan_gather", rows, perm, ids):
+        return accumulate_scan_gather_plain(rows, perm, ids, n_windows, n_buckets)
+    dev = rows.device
+    partial = identity_planes((n_windows * n_buckets,), dev)
+    final_acc = torch.empty((4, 16, W), dtype=torch.int32, device=dev)
+    final_id = torch.empty((W,), dtype=torch.int32, device=dev)
+    _launch(
+        "accumulate_scan_gather", "launch_accumulate_scan_gather", rows.data_ptr(),
+        perm.data_ptr(), ids.data_ptr(), partial.data_ptr(), final_acc.data_ptr(),
+        final_id.data_ptr(), L, W, W // n_windows, n_buckets,
+    )
+    return final_acc, final_id, partial
+
+
+# ---------------------------------------------------------------------------
 # 3. padd_masked: mask ? a + b : a over [4, 16, W]; mask [W] (nonzero = add).
 # ---------------------------------------------------------------------------
 def padd_masked_plain(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -206,21 +267,73 @@ def padd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# 5. grouped_running_sum: s [Gs, 4, 16, W] -> (T, U) [4, 16, W] with
-#    T = sum_r s[r] and U = sum_r r * s[r].
+# 5 and 9. The tree reduction: grouped_running_sum and reduce_finish.
+#    Extended coordinates are not canonical: the same point has many digit
+#    forms, and the order of the adds picks one. `_tree_sums` adds in the
+#    order of the kernels' `tree_sums` (csrc/padd_kernels.cu), so kernel and
+#    plain version agree digit for digit; against a serial chain of adds they
+#    agree as points.
 # ---------------------------------------------------------------------------
+def _group_plan(n: int, lanes: int, max_threads: int) -> tuple[int, int]:
+    """(P, q): P threads share a lane of n elements, q = ceil(n / P) each.
+    P is a power of two, at most next_pow2(n) and `max_threads`, and small
+    enough that lanes * P threads do not overfill the card."""
+    fill = max(1, CARD_THREADS // lanes)
+    P = min(max_threads, 1 << (n - 1).bit_length(), 1 << (fill.bit_length() - 1))
+    return P, -(-n // P)
+
+
+def _add_st(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Unified add over stacked [4, 16, ...] int64 points."""
+    return curve_ops.add(PointVec.from_stacked(a), PointVec.from_stacked(b)).stacked()
+
+
+def _tree_sums(s: torch.Tensor, P: int):
+    """s [n, 4, 16, W] -> (T, U) [4, 16, W] int64 with T = sum_r s[r] and
+    U = sum_r r * s[r], adding in the order of P threads a lane: chunk sums
+    of q = ceil(n / P) elements (padded with the identity), an inclusive
+    suffix scan of them, U's terms run_r (r >= 1) summed per chunk, and a
+    tree fold of those. Axis 2 of the stacked tensors below is the thread."""
+    n, _, _, W = s.shape
+    q, dev = -(-n // P), s.device
+    ident = lambda count: curve_ops.identity((count, W), dev).stacked()
+    e = torch.cat([limbs.as_i64(s).permute(1, 2, 0, 3), ident(P * q - n)], dim=2)
+    e = e.reshape(4, 16, P, q, W)
+    incl = e[:, :, :, q - 1]
+    for j in range(q - 2, -1, -1):
+        incl = _add_st(e[:, :, :, j], incl)
+    d = 1
+    while d < P:
+        incl = torch.cat([_add_st(incl[:, :, : P - d], incl[:, :, d:]), incl[:, :, P - d :]], dim=2)
+        d *= 2
+    if q == 1:
+        v = torch.cat([ident(1), incl[:, :, 1:]], dim=2)
+    else:
+        run = torch.cat([incl[:, :, 1:], ident(1)], dim=2)
+        for j in range(q - 1, -1, -1):
+            run = _add_st(run, e[:, :, :, j])
+            if j == q - 1:
+                v = run
+            elif j > 0:
+                v = _add_st(v, run)
+            else:  # element 0 of the lane has weight 0: thread 0 skips it
+                v = torch.cat([v[:, :, :1], _add_st(v[:, :, 1:], run[:, :, 1:])], dim=2)
+    h = P // 2
+    while h >= 1:
+        v = _add_st(v[:, :, :h], v[:, :, h : 2 * h])
+        h //= 2
+    return incl[:, :, 0], v[:, :, 0]
+
+
 def grouped_running_sum_plain(s: torch.Tensor):
-    """r = Gs-1 .. 0: run += s[r]; U += run on every step but the last."""
     Gs, _, _, W = s.shape
-    run = u = curve_ops.identity((W,), s.device)
-    for i in range(Gs):
-        run = curve_ops.add(run, _pts(s[Gs - 1 - i]))
-        if i != Gs - 1:
-            u = curve_ops.add(u, run)
-    return run.stacked().to(torch.int32), u.stacked().to(torch.int32)
+    T, U = _tree_sums(s, _group_plan(Gs, W, GROUP_THREADS)[0])
+    return T.to(torch.int32), U.to(torch.int32)
 
 
 def grouped_running_sum(s: torch.Tensor):
+    """s [Gs, 4, 16, W] -> (T, U) [4, 16, W], with `_group_plan`'s threads
+    a lane."""
     Gs, _, _, W = s.shape
     _shape("grouped_running_sum", s, (Gs, 4, 16, W))
     if not _on_card("grouped_running_sum", s):
@@ -229,6 +342,39 @@ def grouped_running_sum(s: torch.Tensor):
     U = torch.empty_like(T)
     _launch(
         "grouped_running_sum", "launch_grouped_running_sum", s.data_ptr(), T.data_ptr(),
-        U.data_ptr(), Gs, W,
+        U.data_ptr(), Gs, W, _group_plan(Gs, W, GROUP_THREADS)[0],
     )
     return T, U
+
+
+def reduce_finish_plain(T: torch.Tensor, U: torch.Tensor, n_windows: int, doublings: int):
+    K, G = n_windows, T.shape[-1] // n_windows
+    P = _group_plan(G, 2 * K, FINISH_THREADS)[0]
+    by_group = lambda t: t.reshape(4, 16, K, G).permute(3, 0, 1, 2)  # [G, 4, 16, K]
+    v = PointVec.from_stacked(_tree_sums(by_group(T), P)[1])  # sum_g g * T_g
+    for _ in range(doublings):
+        v = curve_ops.double(v)
+    mont = curve_ops.add(v, PointVec.from_stacked(_tree_sums(by_group(U), P)[0])).stacked()
+    plain = torch.stack([field_ops.from_mont(mont[i]) for i in range(4)])
+    return plain.to(torch.int32), mont.to(torch.int32)
+
+
+def reduce_finish(T: torch.Tensor, U: torch.Tensor, n_windows: int, doublings: int):
+    """The end of the bucket reduction. T, U [4, 16, K * G]: the first
+    grouped pass's sums of group g of window k at lane k * G + g. Returns the
+    window sums 2^doublings * sum_g g * T_g + sum_g U_g as [4, 16, K] planes,
+    (plain domain, Montgomery domain)."""
+    K, W = n_windows, T.shape[-1]
+    _shape("reduce_finish", T, (4, 16, W))
+    _shape("reduce_finish", U, (4, 16, W))
+    if K <= 0 or W % K or doublings < 0:
+        raise ValueError(f"reduce_finish: {W} lanes do not split into {K} windows")
+    if not _on_card("reduce_finish", T, U):
+        return reduce_finish_plain(T, U, K, doublings)
+    plain = torch.empty((4, 16, K), dtype=torch.int32, device=T.device)
+    mont = torch.empty_like(plain)
+    _launch(
+        "reduce_finish", "launch_reduce_finish", T.data_ptr(), U.data_ptr(), plain.data_ptr(),
+        mont.data_ptr(), W // K, K, _group_plan(W // K, 2 * K, FINISH_THREADS)[0], doublings,
+    )
+    return plain, mont

@@ -5,12 +5,15 @@ The counterpart of the JAX package's `ops/pippenger.py`:
 1. `compute_digits`: window split, sign flag in bit 31.
 2. `accumulate_batch` / `accumulate_buckets`: one batch, or a loop over
    batches that adds each one's buckets with `padd`. Each batch is
-   `_accumulate_batch`: a stable sort of each window's bucket ids, a
-   gather of packed point rows into run order, the `accumulate_scan`
-   kernel over C lanes of L steps per window, a segmented scan over lanes
-   with `padd_masked`, a bucket histogram, and bucket assembly with `padd`.
-3. `reduce_buckets`: the grouped running sum (two `grouped_running_sum`
-   launches), log2(Gs) doublings and one add.
+   `_accumulate_batch`: a stable sort of each window's bucket ids, the
+   `accumulate_scan_gather` kernel over C lanes of L steps per window
+   (it gathers the packed point rows itself and leaves each bucket's
+   in-lane partial sum), a segmented scan over lanes with `padd_masked`,
+   a bucket histogram, and bucket assembly with `padd`.
+3. `reduce_and_finish`: the grouped running sum (`grouped_running_sum`
+   over the buckets of each group), then `reduce_finish` over the groups,
+   which also doubles log2(Gs) times, adds and leaves the Montgomery
+   domain. `reduce_buckets` is its Montgomery-domain output.
 
 Point planes travel as int32 tensors of u32 bits; ids, digits and
 positions are int64. Every point kernel goes through `ops/kernels`, which
@@ -21,8 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from . import curve_ops, limbs, windows
-from .curve_ops import PointVec
+from . import limbs, windows
 from .kernels import padd_kernels as pk
 
 
@@ -46,15 +48,10 @@ def compute_digits(
     return windows.split_windows(scalar_words, window_size)
 
 
-def identity_stacked(shape, device) -> torch.Tensor:
-    """[4, 16, *shape] int32 identity points."""
-    return curve_ops.identity(tuple(shape), device).stacked().to(torch.int32)
-
-
 def identity_buckets(window_size: int, signed_digits: bool, device="cpu") -> torch.Tensor:
     """Identity bucket array [4, 16, K, B] int32 (the batch loop's carry)."""
     shape = (windows.n_windows(window_size), n_buckets(window_size, signed_digits))
-    return identity_stacked(shape, device)
+    return pk.identity_planes(shape, device)
 
 
 def _vadd(a_st: torch.Tensor, b_st: torch.Tensor) -> torch.Tensor:
@@ -127,20 +124,20 @@ def _accumulate_batch(
     sorted_digits, perm = torch.sort(keys, dim=1, stable=True)
     sorted_packed = torch.gather(digits, 1, perm)
 
-    # Step-major [L, K, C]: lane (k, c) scans sorted positions c*L + j.
-    perm_lkc = perm.reshape(K, C, L).permute(2, 0, 1)
-    ids_lw = limbs.as_i32(sorted_packed).reshape(K, C, L).permute(2, 0, 1).reshape(L, W).contiguous()
+    # Step-major [L, K * C]: lane (k, c) scans sorted positions c*L + j.
+    lanes = lambda t: limbs.as_i32(t).reshape(K, C, L).permute(2, 0, 1).reshape(L, W).contiguous()
 
-    # Packed point rows (two 16-bit digits per u32 word, the scan's input
-    # format), gathered into run order: [3, 8, L, K*C].
+    # Packed point rows (two 16-bit digits per u32 word, 96 B a point), which
+    # the scan gathers into run order itself.
     p64 = limbs.as_i64(points)
     packed = limbs.as_i32(p64[:, 0::2] | (p64[:, 1::2] << 16))  # [3, 8, M]
-    rows = packed.reshape(24, M).t().contiguous()[perm_lkc.reshape(-1)]  # [L*K*C, 24]
-    sorted_pts = rows.t().reshape(3, 8, L, W).contiguous()
-    del rows
+    rows = packed.reshape(24, M).t().contiguous()  # [M, 24]
 
-    final_acc, final_id, staged = pk.accumulate_scan(sorted_pts, ids_lw)
-    del sorted_pts
+    # partial: per bucket, the sum of its run's tail inside the lane where
+    # the run ends (the identity where it ends at a lane edge, or is empty).
+    final_acc, final_id, partial = pk.accumulate_scan_gather(
+        rows, lanes(perm), lanes(sorted_packed), K, B
+    )
     final_id = final_id.to(torch.int64).reshape(K, C)
 
     # ---- segmented inclusive scan over lanes (runs crossing lane edges) ----
@@ -156,7 +153,8 @@ def _accumulate_batch(
         ).reshape(4, 16, K, C)
     # At the last lane of each equal-id segment: the segment's total.
 
-    # ---- per-bucket combine via analytic positions ----
+    # ---- per-bucket carry via analytic positions: the total of the lanes
+    # that the bucket's run covers up to a lane edge ----
     k_idx = torch.arange(K, device=dev).reshape(K, 1)
     hist = torch.bincount((k_idx * B + sorted_digits).reshape(-1), minlength=K * B)
     hist = hist.reshape(K, B)
@@ -164,22 +162,10 @@ def _accumulate_batch(
     s_pos = e_pos - hist
     c_last = e_pos // L - 1
     carry_valid = c_last >= s_pos // L
-    e_mod = e_pos % L
-    staged_valid = (e_pos > s_pos) & (e_mod != 0)
-    c1 = torch.clamp(e_pos // L, 0, C - 1)
-    j_staged = torch.clamp(e_mod, 0, L - 1)
-    c_last_c = torch.clamp(c_last, 0, C - 1)
-
-    staged_idx = (j_staged * W + k_idx * C + c1).reshape(-1)
-    staged_pts = staged.reshape(4, 16, L * W).index_select(2, staged_idx)
-    del staged
-    carry_idx = (k_idx * C + c_last_c).reshape(-1)
+    carry_idx = (k_idx * C + torch.clamp(c_last, 0, C - 1)).reshape(-1)
     carry_pts = carries.reshape(4, 16, W).index_select(2, carry_idx)
-
-    ident = identity_stacked((K * B,), dev)
-    a_st = torch.where(staged_valid.reshape(-1), staged_pts, ident)
-    b_st = torch.where(carry_valid.reshape(-1), carry_pts, ident)
-    return pk.padd(a_st, b_st).reshape(4, 16, K, B)
+    b_st = torch.where(carry_valid.reshape(-1), carry_pts, pk.identity_planes((K * B,), dev))
+    return pk.padd(partial, b_st).reshape(4, 16, K, B)
 
 
 def group_size(n_buckets: int) -> int:
@@ -187,17 +173,18 @@ def group_size(n_buckets: int) -> int:
     return 32 if n_buckets >= 1024 else (16 if n_buckets >= 64 else 1)
 
 
-def reduce_buckets(bucket_sums: torch.Tensor) -> torch.Tensor:
-    """Bucket reduction W_k = sum_b b * S_b -> window sums [4, 16, K] int64.
+def reduce_and_finish(bucket_sums: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Bucket reduction W_k = sum_b b * S_b -> window sums [4, 16, K] int32,
+    (plain domain, Montgomery domain).
 
     Split b = g*Gs + r (G groups of Gs):
 
         W = Gs * sum_g g*T_g  +  sum_g U_g,
         T_g = sum_r S[g, r],  U_g = sum_r r * S[g, r].
 
-    One grouped pass gives T and U for all K*G groups. A second pass over
-    the G axis, with lanes 0..K-1 carrying T and lanes K..2K-1 carrying U,
-    gives V = sum_g g*T_g (its U output) and sum_g U_g (its T output).
+    `grouped_running_sum` gives T and U for all K*G groups; `reduce_finish`
+    sums g*T_g and U_g over each window's groups, doubles the first log2(Gs)
+    times, adds the second and leaves the Montgomery domain.
     """
     K, B = bucket_sums.shape[-2], bucket_sums.shape[-1]
     Gs = group_size(B)
@@ -208,10 +195,9 @@ def reduce_buckets(bucket_sums: torch.Tensor) -> torch.Tensor:
     G = B // Gs
     s = bucket_sums.reshape(4, 16, K * G, Gs).permute(3, 0, 1, 2).contiguous()
     T, U = pk.grouped_running_sum(s)  # [4, 16, K*G]
-    tu = torch.cat([T.reshape(4, 16, K, G), U.reshape(4, 16, K, G)], dim=2)
-    T2, U2 = pk.grouped_running_sum(tu.permute(3, 0, 1, 2).contiguous())  # [4, 16, 2K]
-    V = PointVec.from_stacked(U2[..., :K].to(torch.int64))
-    U_tot = PointVec.from_stacked(T2[..., K : 2 * K].to(torch.int64))
-    for _ in range(Gs.bit_length() - 1):  # * Gs, a power of two
-        V = curve_ops.double(V)
-    return curve_ops.add(V, U_tot).stacked()
+    return pk.reduce_finish(T, U, K, Gs.bit_length() - 1)
+
+
+def reduce_buckets(bucket_sums: torch.Tensor) -> torch.Tensor:
+    """Window sums [4, 16, K] int64 in the Montgomery domain."""
+    return limbs.as_i64(reduce_and_finish(bucket_sums)[1])

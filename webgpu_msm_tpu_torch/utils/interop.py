@@ -28,6 +28,34 @@ def planes_to_numpy(t: torch.Tensor) -> np.ndarray:
     return a.astype(np.uint32)
 
 
+def mont_planes_from_points(points) -> np.ndarray:
+    """Extended points (anything with x, y, t, z ints) -> [4, 16, n] uint32
+    Montgomery digit planes."""
+    from ..oracle import field
+
+    out = np.zeros((4, 16, len(points)), dtype=np.uint32)
+    for i, p in enumerate(points):
+        for c, v in enumerate((p.x, p.y, p.t, p.z)):
+            m = v * field.R_MOD_P % field.P
+            out[c, :, i] = [(m >> (16 * d)) & 0xFFFF for d in range(16)]
+    return out
+
+
+def affine_from_planes(st, mont: bool = True) -> list[tuple[int, int]]:
+    """[4, 16, n] digit planes of extended points (Montgomery domain unless
+    `mont` is False) -> n affine (x, y): equality of points, whatever their
+    extended form."""
+    from ..oracle import curve, field
+
+    st = np.asarray(st, dtype=np.uint64)
+    scale = pow(field.R, -1, field.P) if mont else 1
+    out = []
+    for i in range(st.shape[-1]):
+        vals = [sum(int(st[c, d, i]) << (16 * d) for d in range(16)) for c in range(4)]
+        out.append(curve.to_affine(curve.ExtPoint(*(v * scale % field.P for v in vals))))
+    return out
+
+
 def wire_plan_from_jax_state(niels, *, n: int, w: int, C: int, L: int, pad_to: int,
                              config, device="cpu"):
     """The resident state of a JAX `WirePlan` (its `_niels` list fetched as
