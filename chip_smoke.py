@@ -9,7 +9,7 @@
    memory.
 3. Times independent `mad.lo.u32` chains (a probe kernel in this file): the
    card's 32-bit integer multiply rate, which the operations bound of every
-   kernel uses. Runs each of the nine kernels and its plain PyTorch version
+   kernel uses. Runs each of the eleven kernels and its plain PyTorch version
    on the card on seeded inputs at the shapes of the 2^20-point paths,
    requires every output digit to be equal, and times both with CUDA
    events (the grouped sum at the shapes of both reduction passes).
@@ -24,10 +24,15 @@
      scalar jobs, against the pinned result and the wire path's;
    - `compute_msm_batch` at 2^16 with one shared point array (the plan
      branch) and with distinct arrays (the batched wire path);
+   - `compute_msm` at 2^16 with every scalar equal to one s, against the
+     oracle's s * (sum of the points): every window is one bucket over all
+     its lanes, so every level of the lane scan adds;
    - the A/B path of the tensor-core scan: the CIOS scan and the
      tensor-core scan at the production shape, in turns, required equal.
    Every result must be the pinned one or, where none is pinned, the wire
-   path's on the same inputs.
+   path's on the same inputs (or the oracle's). Every `compute_msm` path
+   launches the gathering scan, `lane_scan` and `assemble_buckets` once a
+   batch, and neither `padd_masked` nor `padd`.
 5. Prints the kernel table as one JSON line, then the result line.
 
 Any failure raises, and the script exits non-zero. It imports nothing of
@@ -54,8 +59,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 OPS_PER_MONT_MUL = 2 * (64 + 64 + 8)
 PALLAS = "webgpu_msm_tpu/ops/pallas/"
 CSRC = "webgpu_msm_tpu_torch/ops/kernels/csrc/"
-WIRE_KERNELS = ("to_niels_xy", "accumulate_scan_gather", "padd_masked", "padd",
+WIRE_KERNELS = ("to_niels_xy", "accumulate_scan_gather", "lane_scan", "assemble_buckets",
                 "grouped_running_sum", "reduce_finish")
+BATCH_KERNELS = ("accumulate_scan_gather", "lane_scan", "assemble_buckets")  # one launch a batch
 MAD_PROBE = """
 #include <cuda_runtime.h>
 // Eight independent mad.lo.u32 chains a thread: nothing but multiply issue.
@@ -148,6 +154,17 @@ def kernel_inputs(gen: torch.Generator, dev, M=1 << 18, K=20, C=2048, L=128, B=4
     lanes = lambda t: as_i32(t).reshape(K, C, L).permute(2, 0, 1).reshape(L, W).contiguous().to(dev)
     row_planes = field_planes(gen, (3,), C * L).to(torch.int64)
     rows = as_i32(row_planes[:, 0::2] | (row_planes[:, 1::2] << 16)).reshape(24, C * L).t().contiguous()
+    # The lane scan's and the bucket assembly's inputs as a batch stage makes
+    # them: each window's ids sorted, the top window's from [0, 65) (253-bit
+    # scalars leave 6 bits and the signed carry to window 19 of w = 13), so
+    # that its buckets span dozens of lanes; final_id is the id of each
+    # lane's last step, sign bit stripped.
+    ldigits = torch.randint(0, B, (K, C * L), generator=gen)
+    ldigits[-1] = torch.randint(0, min(65, B), (C * L,), generator=gen)
+    ldigits = torch.sort(ldigits, dim=1).values
+    hist = torch.stack([torch.bincount(d, minlength=B) for d in ldigits])
+    e_pos = torch.cumsum(hist, dim=1)
+    final_id = ldigits[:, L - 1 :: L].reshape(W)
     return {
         "to_niels_xy": (pts((2,), M),),
         "to_niels": (pts((3,), M),),
@@ -162,6 +179,9 @@ def kernel_inputs(gen: torch.Generator, dev, M=1 << 18, K=20, C=2048, L=128, B=4
         "grouped_running_sum pass 2": (pts((G, 4), 2 * K),),
         "accumulate_scan_gather": (rows.to(dev), lanes(order), lanes(sorted_ids), K, B),
         "reduce_finish": (pts((4,), K * G), pts((4,), K * G), K, Gs.bit_length() - 1),
+        "lane_scan": (pts((4,), W), final_id.to(torch.int32).to(dev), K),
+        "assemble_buckets": (pts((4,), K * B), pts((4,), W), hist.to(torch.int32).to(dev),
+                             e_pos.to(torch.int32).to(dev), L, pts((4,), K * B)),
     }
 
 
@@ -212,6 +232,23 @@ def bound(name: str, args, ops_per_s: float) -> tuple[float, str]:
         # re-reads of each row). Outputs: final_acc, final_id, partial.
         nbytes += (64 * W + W + 64 * K * B) * 4
         muls = 7 * L * W
+    elif name == "lane_scan":
+        # The adds the masks imply, level by level (the kernel copies the
+        # other lanes); output: the scanned lanes.
+        _, final_id, K = args
+        W = final_id.numel()
+        ids, lane = final_id.reshape(K, W // K), torch.arange(W // K, device=final_id.device)
+        adds = sum(int(((lane >= 1 << i) & (torch.roll(ids, 1 << i, dims=-1) == ids)).sum())
+                   for i in range(max((W // K - 1).bit_length(), 1)))
+        nbytes += 64 * W * 4
+        muls = 9 * adds
+    elif name == "assemble_buckets":
+        # Of the lane totals only the picked lanes are read; two adds a
+        # bucket with a carry, identities included; output: one point a bucket.
+        partial, carries, hist, e_pos, L, carry = args
+        picked = int(((e_pos // L - 1) >= (e_pos - hist) // L).sum())
+        nbytes += (64 * picked - carries.numel() + partial.numel()) * 4
+        muls = 9 * (1 if carry is None else 2) * partial.shape[-1]
     elif name == "padd_masked":
         nbytes += args[0].numel() * 4
         muls = 9 * int((args[2] != 0).sum())
@@ -262,10 +299,12 @@ def profile_call(label: str, fn, warm_ms: float, top: int = 12) -> None:
     check(gather_ms < 2.0, f"{label}: plain gather kernels take {gather_ms:.3f} ms")
 
 
-def drive(label: str, pk, fn, must: tuple, must_not: tuple):
+def drive(label: str, pk, fn, must: tuple, must_not: tuple, batches: int = 0):
     """One path: launch counts set to 0, the path driven once and
     synchronized, counts read. Returns (result, wall ms, counts); fails
-    unless every kernel in `must` was launched and none in `must_not`."""
+    unless every kernel in `must` was launched and none in `must_not`, and,
+    for a `compute_msm` path of `batches` batch stages, unless each batch
+    kernel was launched once a batch."""
     pk.reset_launch_counts()
     out, ms = once_ms(fn)
     counts = dict(pk.launches)
@@ -273,6 +312,9 @@ def drive(label: str, pk, fn, must: tuple, must_not: tuple):
         check(counts[kname] > 0, f"{label}: kernel {kname} was not launched")
     for kname in must_not:
         check(counts[kname] == 0, f"{label}: kernel {kname} was launched {counts[kname]} times")
+    for kname in BATCH_KERNELS if batches else ():
+        check(counts[kname] == batches,
+              f"{label}: kernel {kname} was launched {counts[kname]} times for {batches} batches")
     return out, ms, counts
 
 
@@ -284,6 +326,7 @@ def main() -> int:
     from webgpu_msm_tpu_torch.engines import gpu_engine
     from webgpu_msm_tpu_torch.ops.kernels import build
     from webgpu_msm_tpu_torch.ops.kernels import padd_kernels as pk
+    from webgpu_msm_tpu_torch.oracle import curve as ocurve
     from webgpu_msm_tpu_torch.oracle.pinned_vectors import PINNED
     from webgpu_msm_tpu_torch.utils import convert, fixtures
 
@@ -329,6 +372,11 @@ def main() -> int:
                                    padd_py.format(258), padd_cu, 3),
         "reduce_finish": (pk.reduce_finish, pk.reduce_finish_plain,
                           "webgpu_msm_tpu/ops/pippenger.py:441", padd_cu, 10),
+        # padd_masked in the seg_level loop (webgpu_msm_tpu/ops/pippenger.py:328)
+        "lane_scan": (pk.lane_scan, pk.lane_scan_plain, padd_py.format(158), padd_cu, 20),
+        # padd in the bucket assembly (pippenger.py:385) and the engines' carry add
+        "assemble_buckets": (pk.assemble_buckets, pk.assemble_buckets_plain, padd_py.format(141),
+                             padd_cu, 20),
     }
     check(tuple(kernels) == pk.KERNELS, "the kernel table does not list the package's kernels")
     # Load each plain version's torch kernels once at a small shape, so its
@@ -388,15 +436,22 @@ def main() -> int:
     N = len(points)
     rate = lambda ms: f"{N / ms * 1e3:.0f} points/s"
 
+    def n_batches(n: int) -> int:
+        _, n_chunks, chunk_len = cfg.resolved_wire_plan(n)
+        return -(-n // (n_chunks * chunk_len))
+
     # 4a. the wire path
     for power in (16, 20):
         _, _, pw, sw = inputs[power]
         wire = lambda: compute_msm(pw, sw, config=cfg, device=dev)
-        res, cold_ms, counts = drive(f"wire 2^{power}", pk, wire, WIRE_KERNELS, others(*WIRE_KERNELS))
+        res, cold_ms, counts = drive(f"wire 2^{power}", pk, wire, WIRE_KERNELS, others(*WIRE_KERNELS),
+                                     n_batches(1 << power))
         check(as_xy(res) == PINNED[power], f"2^{power}: result differs from PINNED")
         print(f"compute_msm 2^{power}: equals PINNED[{power}]; launches {counts}")
         if power == 20:
-            for kname in WIRE_KERNELS:
+            # padd_masked and padd: 0, on no compute_msm path since lane_scan
+            # and assemble_buckets
+            for kname in WIRE_KERNELS + ("padd_masked", "padd"):
                 rows[kname]["launches"] = counts[kname]
             res, warm_ms = once_ms(wire)
             check(as_xy(res) == PINNED[power], "2^20 warm call differs from PINNED")
@@ -411,7 +466,7 @@ def main() -> int:
     marshal_s = time.perf_counter() - t0
     planes_kernels = ("to_niels",) + WIRE_KERNELS[1:]
     res, ms, counts = drive("planes 2^20", pk, lambda: compute_msm(points, scalars, config=cfg, device=dev),
-                            planes_kernels, others(*planes_kernels))
+                            planes_kernels, others(*planes_kernels), n_batches(N))
     check(as_xy(res) == PINNED[20], "planes path 2^20: result differs from PINNED")
     rows["to_niels"]["launches"] = counts["to_niels"]
     print(f"planes path 2^20: equals PINNED[20]; launches {counts}")
@@ -420,7 +475,8 @@ def main() -> int:
 
     # 4c. device_affine: the wire call with the affine finish on the card
     affine = lambda: compute_msm(pts, sc, config=MSMConfig(device_affine=True), device=dev)
-    res, cold_ms, counts = drive("device_affine 2^20", pk, affine, WIRE_KERNELS, others(*WIRE_KERNELS))
+    res, cold_ms, counts = drive("device_affine 2^20", pk, affine, WIRE_KERNELS, others(*WIRE_KERNELS),
+                                 n_batches(N))
     check(as_xy(res) == PINNED[20], "device_affine 2^20: result differs from PINNED")
     res, warm_ms = once_ms(affine)
     check(as_xy(res) == PINNED[20], "device_affine 2^20 warm call differs from PINNED")
@@ -435,13 +491,11 @@ def main() -> int:
     want = [PINNED[20]] + [as_xy(compute_msm(pts, s, config=cfg, device=dev)) for s in jobs[1:]]
     plan, build_ms, counts = drive("plan build 2^20", pk, lambda: MSMPlan(pts, config=cfg, device=dev),
                                    ("to_niels_xy",), others("to_niels_xy"))
-    _, n_chunks, chunk_len = cfg.resolved_wire_plan(N)
-    n_batches = -(-N // (n_chunks * chunk_len))
-    check(counts["to_niels_xy"] == n_batches,
-          f"plan build: to_niels_xy launched {counts['to_niels_xy']} times for {n_batches} batches")
+    check(counts["to_niels_xy"] == n_batches(N),
+          f"plan build: to_niels_xy launched {counts['to_niels_xy']} times for {n_batches(N)} batches")
     job_kernels = WIRE_KERNELS[1:]
     got, batch_ms, counts = drive("plan jobs 2^20", pk, lambda: plan.msm_batch(jobs),
-                                  job_kernels, others(*job_kernels))
+                                  job_kernels, others(*job_kernels), len(jobs) * n_batches(N))
     check([as_xy(r) for r in got] == want, "plan jobs: results differ from PINNED / the wire path")
     res, one_ms = once_ms(lambda: plan.msm(jobs[1]))
     check(as_xy(res) == want[1], "plan.msm: result differs from the wire path")
@@ -461,14 +515,31 @@ def main() -> int:
                                                ("distinct arrays", [pw, pw.copy()], 2)):
         got, ms, counts = drive(f"compute_msm_batch 2^16, {label}", pk,
                                 lambda: compute_msm_batch(point_arrays, [sw, sw2], config=cfg, device=dev),
-                                WIRE_KERNELS, others(*WIRE_KERNELS))
+                                WIRE_KERNELS, others(*WIRE_KERNELS), 2 * n_batches(len(sw)))
         check([as_xy(r) for r in got] == want, f"compute_msm_batch ({label}): results differ")
         check(counts["to_niels_xy"] == n_conversions,
               f"compute_msm_batch ({label}): to_niels_xy launched {counts['to_niels_xy']} times")
         print(f"compute_msm_batch 2^16, {label}: 2 jobs equal PINNED[16] / the wire path in "
               f"{ms / 1e3:.3f} s; launches {counts} [{smi}]")
 
-    # 4f. the A/B path of the dense scans (the TPU kernel's contract, with
+    # 4f. equal scalars at 2^16: every window is one bucket over all its
+    # lanes, so every lane scan level adds; against the oracle's s * sum(P)
+    points16, _, pw, _ = inputs[16]
+    s_one = fixtures.random_scalars(1, seed=4016)[0]
+    t0 = time.perf_counter()
+    total = ocurve.IDENTITY
+    for p in points16:
+        total = ocurve.add(total, p)
+    want = ocurve.to_affine(ocurve.scalar_mul(total, s_one))
+    oracle_s = time.perf_counter() - t0
+    same = convert.bigints_to_u32_be([s_one] * len(points16))
+    res, ms, counts = drive("equal scalars 2^16", pk, lambda: compute_msm(pw, same, config=cfg, device=dev),
+                            WIRE_KERNELS, others(*WIRE_KERNELS), n_batches(len(points16)))
+    check(as_xy(res) == want, "equal scalars 2^16: result differs from the oracle's s * sum(P)")
+    print(f"equal scalars 2^16: equals the oracle's s * sum(P) (oracle {oracle_s:.1f} s on the host); "
+          f"{ms / 1e3:.3f} s; launches {counts} [{smi}]")
+
+    # 4g. the A/B path of the dense scans (the TPU kernel's contract, with
     # `staged`): no compute_msm path selects them; their entry point is this
     # comparison at the production shape, the CIOS scan and the tensor-core
     # scan in turns, required equal.

@@ -69,7 +69,25 @@ def _inputs(name, rng, dev, width=300):
                 t(rng.integers(0, 2, size=width).astype(np.uint32)))
     if name == "padd":
         return (t(rand_planes(rng, (4,), width)), t(rand_planes(rng, (4,), width)))
+    if name in ("lane_scan", "assemble_buckets"):
+        K = 3 if width % 3 == 0 else 1
+        final_id, hist, e_pos = _batch_ids(rng, K, width // K)
+        if name == "lane_scan":
+            return (t(rand_planes(rng, (4,), width)), t(final_id), K)
+        return (t(rand_planes(rng, (4,), K * 40)), t(rand_planes(rng, (4,), width)), t(hist),
+                t(e_pos), 4, t(rand_planes(rng, (4,), K * 40)))
     return (t(rand_planes(rng, (5, 4), width)),)
+
+
+def _batch_ids(rng, K, C, L=4, B=40):
+    """The lane scan's and the bucket assembly's integer inputs as a batch
+    stage makes them from K windows of C * L sorted bucket ids: final_id
+    [K * C] (the id of each lane's last step, sign bit stripped), hist and
+    e_pos [K, B]. In window 0 one bucket spans every lane."""
+    digits = np.sort(rng.integers(0, B, size=(K, C * L)), axis=1)
+    digits[0] = B // 2
+    hist = np.stack([np.bincount(d, minlength=B) for d in digits]).astype(np.uint32)
+    return digits[:, L - 1 :: L].reshape(-1).astype(np.uint32), hist, np.cumsum(hist, axis=1).astype(np.uint32)
 
 
 def _kernel_and_plain(name):
@@ -129,6 +147,43 @@ def test_tree_sum_thread_plans_on_card(cuda, Gs, width, plan):
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("C", [1, 3, 300, 2048, 4096])
+def test_lane_scan_and_assemble_buckets_on_card(cuda, C):
+    """The two kernels after the scan, chained as the batch stage chains
+    them, against their plain versions: C lanes a window (one partial block,
+    a partial cluster of two, a full cluster of 8 x 256, two lanes a
+    thread), window 0 one bucket over all its lanes; the bucket assembly
+    with and without a carry, which it reads and leaves as it was."""
+    rng = np.random.default_rng(C)
+    t = lambda arr: planes_from_numpy(arr, cuda)
+    K, L, B = 3, 4, 40
+    final_id, hist, e_pos = (t(a) for a in _batch_ids(rng, K, C, L, B))
+    final_acc = t(rand_planes(rng, (4,), K * C))
+    carries = pk.lane_scan(final_acc, final_id, K)
+    assert torch.equal(carries, pk.lane_scan_plain(final_acc, final_id, K))
+    partial, carry = t(rand_planes(rng, (4,), K * B)), t(rand_planes(rng, (4,), K * B))
+    before = carry.clone()
+    for c in (None, carry):
+        got = pk.assemble_buckets(partial, carries, hist, e_pos, L, c)
+        assert torch.equal(got, pk.assemble_buckets_plain(partial, carries, hist, e_pos, L, c))
+    assert torch.equal(carry, before)
+
+
+def test_equal_scalars_on_card_match_oracle(cuda):
+    """2^16 points, every scalar s: every window has one bucket over all its
+    lanes, so every level of the lane scan adds, in every lane it can."""
+    n = 1 << 16
+    pts = fixtures.distinct_points_fast(n, seed=61)
+    s = fixtures.random_scalars(1, seed=62)[0]
+    total = curve.IDENTITY
+    for p in pts:
+        total = curve.add(total, p)
+    pk.reset_launch_counts()
+    got = compute_msm(fixtures.wire_points(pts), convert.bigints_to_u32_be([s] * n), device=cuda)
+    assert (got.x, got.y) == curve.to_affine(curve.scalar_mul(total, s))
+    assert pk.launches["lane_scan"] == pk.launches["assemble_buckets"] == 1
+
+
 def test_compute_msm_on_card_matches_oracle(cuda):
     pts = fixtures.distinct_points_fast(48, seed=51)
     scalars = fixtures.random_scalars(48, seed=52)
@@ -139,7 +194,7 @@ def test_compute_msm_on_card_matches_oracle(cuda):
         config=MSMConfig(window_size=8, n_chunks=4, chunk_len=4), device=cuda,
     )
     assert (got.x, got.y) == want
-    used = ("to_niels_xy", "accumulate_scan_gather", "padd_masked", "padd",
+    used = ("to_niels_xy", "accumulate_scan_gather", "lane_scan", "assemble_buckets",
             "grouped_running_sum", "reduce_finish")
     assert all(pk.launches[name] > 0 for name in used), pk.launches
     assert all(pk.launches[name] == 0 for name in pk.KERNELS if name not in used), pk.launches

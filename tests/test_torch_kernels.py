@@ -193,7 +193,8 @@ def test_wrappers_reject_bad_tensors(bad):
 def test_every_kernel_has_a_count_and_a_plain_version():
     assert pk.KERNELS == ("to_niels_xy", "accumulate_scan", "padd_masked", "padd",
                           "grouped_running_sum", "to_niels", "accumulate_scan_mma",
-                          "accumulate_scan_gather", "reduce_finish")
+                          "accumulate_scan_gather", "reduce_finish", "lane_scan",
+                          "assemble_buckets")
     assert set(pk.launches) == set(pk.KERNELS)
     for name in pk.KERNELS[:6] + pk.KERNELS[7:]:
         assert callable(getattr(pk, name)) and callable(getattr(pk, name + "_plain"))
@@ -211,7 +212,7 @@ def test_signatures_cover_every_c_entry_point():
             )
     assert found == build.SIGNATURES
     kernels = {m for cu in build.CSRC.glob("*.cu")
-               for m in re.findall(r"__global__ void\s+(?:__launch_bounds__\(\w+\)\s+)?(\w+)\(",
+               for m in re.findall(r"__global__ void\s+(?:__launch_bounds__\([\w, ]+\)\s+)?(\w+)\(",
                                    cu.read_text())}
     assert kernels == {name + "_kernel" for name in pk.KERNELS}
 

@@ -86,22 +86,20 @@ def _batch_planes_impl(points_plain, scalar_words, carry_st, *, window_size, n_c
                        chunk_len, signed_digits=False):
     """One planes batch: [3, 16, M] plain planes and [8, M] LE scalar words
     (int32 bits) -> carry [4, 16, K, B] + this batch's bucket sums."""
-    bsums = pippenger.accumulate_batch(
+    return pippenger.accumulate_batch(
         pk.to_niels(points_plain), limbs.as_i64(scalar_words), window_size=window_size,
-        n_chunks=n_chunks, chunk_len=chunk_len, signed_digits=signed_digits,
+        n_chunks=n_chunks, chunk_len=chunk_len, signed_digits=signed_digits, carry=carry_st,
     )
-    return pippenger._vadd(carry_st, bsums)
 
 
 def _fixed_batch_impl(pts_niels, scalars_be, carry_st, *, window_size, n_chunks,
                       chunk_len, signed_digits=False):
     """One fixed-base batch: resident Niels points + this job's [M, 8] BE
     scalar rows."""
-    bsums = pippenger.accumulate_buckets(
+    return pippenger.accumulate_buckets(
         pts_niels, _be_rows_to_words_le(scalars_be), window_size=window_size,
-        n_chunks=n_chunks, chunk_len=chunk_len, signed_digits=signed_digits,
+        n_chunks=n_chunks, chunk_len=chunk_len, signed_digits=signed_digits, carry=carry_st,
     )
-    return pippenger._vadd(carry_st, bsums)
 
 
 def _wire_batch_impl(xy_be, scalars_be, carry_st, **static):

@@ -39,6 +39,8 @@ SIGNATURES = {
     "launch_accumulate_scan_gather": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "launch_grouped_running_sum": (_P, _P, _P, _I, _I, _I, _P),
     "launch_reduce_finish": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "launch_lane_scan": (_P, _P, _P, _P, _I, _I, _P),
+    "launch_assemble_buckets": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 _lib: ctypes.CDLL | None = None

@@ -11,17 +11,22 @@
 // every plane, so a warp's loads and stores are coalesced; the ragged last
 // block is masked, so no width padding. Where a Pallas grid carried state in
 // VMEM scratch from one step to the next, that state is a register loop
-// inside one thread here. The two kernels the 2^20 call spent most on were
+// inside one thread here. The kernels the 2^20 call spent most on were
 // designed again for this card: accumulate_scan_gather (four threads a lane,
 // rows gathered in the kernel, bucket partial sums in place of the dense
-// staged tensor) and the tree reduction of grouped_running_sum and
-// reduce_finish (several threads a lane through shared memory).
+// staged tensor), the tree reduction of grouped_running_sum and
+// reduce_finish (several threads a lane through shared memory), the lane
+// scan in one launch (lane_scan: a thread block cluster a window, in place
+// of eleven padd_masked launches) and the bucket assembly with the batch
+// carry add (assemble_buckets, in place of two padd launches).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "field.cuh"
 
 using namespace msm;
+namespace cg = cooperative_groups;
 
 namespace {
 constexpr int kThreads = 128;     // elementwise kernels
@@ -118,6 +123,117 @@ extern "C" __global__ void padd_masked_kernel(const int32_t* __restrict__ a,
                                               int32_t* __restrict__ out, int W) {
   const int w = blockIdx.x * blockDim.x + threadIdx.x;
   if (w < W) padd_lane(a, b, mask, out, W, w);
+}
+
+// ---------------------------------------------------------------------------
+// lane_scan. The counterpart of the seg_level loop of the JAX package's
+// _accumulate_batch (ops/pippenger.py), eleven padd_masked launches a batch
+// at C = 2048, in one launch: the segmented inclusive scan over the C lanes
+// of each window of in [4][16][K*C]. For d = 1, 2, 4, ... < C, lane c
+// becomes v[c] + v[c-d] where c >= d and ids[c-d] == ids[c], and stays v[c]
+// otherwise; every level reads the previous level's values, and the own
+// value is the first operand, as in the JAX loop, so the digits are its
+// digits. A window's lanes read only lanes of the same window, so window k
+// is one thread block cluster of up to 8 blocks (cluster rank r takes lanes
+// r * blockDim.x + tid, + 8 * blockDim.x, ...), and the cluster barrier
+// separates the levels: no grid-wide sync, the 20 windows of a 2^20 batch
+// run independently. The levels' values go through two ping-pong buffers in
+// device memory (out and scratch, 5 MB each at W = 40960, resident in L2),
+// loaded with ld.global.cg past the SM's L1, which another SM's stores do
+// not update: one layout and one code path for every C (values in
+// distributed shared memory would cap C at about 7 000 lanes on 8 blocks).
+// A lane whose test fails copies its value and skips the add (the test is
+// made at every level, so any ids give the JAX result; sorted ids make it
+// fail for good once it fails). Bound: the bytes of in, ids and out, or the
+// adds the masks imply, 9 products each. On random scalars only the top
+// window adds much: its 65 buckets (w = 13) span about 31 lanes each, so its
+// cluster adds in most lanes on five levels, and that cluster's chains of
+// dependent products, one lane a thread on 8 SMs, set the time.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void load_fp_l2(u32 r[8], const int32_t* src, size_t stride,
+                                           size_t base) {
+#pragma unroll
+  for (int i = 0; i < 8; i++)
+    r[i] = (u32)__ldcg(src + (2 * i) * stride + base) |
+           ((u32)__ldcg(src + (2 * i + 1) * stride + base) << 16);
+}
+
+__device__ __forceinline__ void load_pt_l2(Pt& p, const int32_t* src, size_t stride,
+                                           size_t base) {
+  load_fp_l2(p.x, src, stride, base);
+  load_fp_l2(p.y, src, stride, base + 16 * stride);
+  load_fp_l2(p.t, src, stride, base + 32 * stride);
+  load_fp_l2(p.z, src, stride, base + 48 * stride);
+}
+
+extern "C" __global__ void __launch_bounds__(256)
+lane_scan_kernel(const int32_t* __restrict__ in, const int32_t* __restrict__ ids,
+                 int32_t* out, int32_t* scratch, int K, int C, int levels) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int nb = (int)cluster.num_blocks();
+  const size_t W = (size_t)K * C, base = (size_t)(blockIdx.x / nb) * C;
+  const int first = (int)cluster.block_rank() * blockDim.x + threadIdx.x;
+  const int step = nb * blockDim.x;
+  const int32_t* src = in;
+  for (int i = 0; i < levels; i++) {
+    const int d = 1 << i;
+    // The last level writes out; the levels before it alternate.
+    int32_t* dst = ((levels - 1 - i) & 1) ? scratch : out;
+    for (int c = first; c < C; c += step) {
+      const size_t w = base + c;
+      Pt v;
+      load_pt_l2(v, src, W, w);
+      if (c >= d && __ldg(ids + w - d) == __ldg(ids + w)) {
+        Pt u;
+        load_pt_l2(u, src, W, w - d);
+        unified_add(v, v, u);
+      }
+      store_pt(dst, W, w, v);
+    }
+    if (i + 1 < levels) cluster.sync();  // release this level's stores, acquire the others'
+    src = dst;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// assemble_buckets. The counterpart of the carry half of the JAX package's
+// bucket assembly (ops/pippenger.py _accumulate_batch: carry_valid, c_last,
+// the take, the where and _vadd(a_st, b_st)) and of the engines' batch carry
+// add _vadd(carry, bucket sums), both over padd: three launches of plain
+// index and select work and two padd launches a batch, in one. One thread a
+// bucket t = k * B + b: from hist and e_pos (int32 [K][B]) it takes
+// s = e - h, c_last = e / L - 1 and valid = c_last >= s / L, loads lane
+// k * C + c_last of carries [4][16][K*C] (the lane scan's segment totals)
+// where valid and the identity elsewhere, adds partial + picked, and, with a
+// carry, carry + that sum: the JAX order, identities never skipped, so the
+// digits are the JAX digits. out may be carry (each thread reads its bucket
+// before it writes it). Per bucket 18 products and 4 points moved at most:
+// bound by the products on the card. A thread's chain of 18 dependent
+// products sets the time, so the launch must be one wave: at 2^20 (82 560
+// buckets, 625 a SM) that takes 5 blocks of 128 an SM, so the registers are
+// capped at 96 (142 uncapped, three blocks an SM and two waves; the cap
+// spills about 200 bytes a thread to the L1 and is still 1.7x faster).
+// ---------------------------------------------------------------------------
+extern "C" __global__ void __launch_bounds__(kThreads, 5)
+assemble_buckets_kernel(const int32_t* __restrict__ partial, const int32_t* __restrict__ carries,
+                        const int32_t* __restrict__ hist, const int32_t* __restrict__ e_pos,
+                        const int32_t* carry, int32_t* out, int K, int B, int C, int L) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= K * B) return;
+  const size_t KB = (size_t)K * B;
+  const int e = e_pos[t], s = e - hist[t], c_last = e / L - 1;
+  Pt p, q;
+  load_pt(p, partial, KB, t);
+  if (c_last >= s / L)
+    load_pt(q, carries, (size_t)K * C, (size_t)(t / B) * C + min(max(c_last, 0), C - 1));
+  else
+    set_identity(q);
+  unified_add(p, p, q);
+  if (carry != nullptr) {
+    load_pt(q, carry, KB, t);
+    unified_add(p, q, p);
+  }
+  store_pt(out, KB, t, p);
 }
 
 // ---------------------------------------------------------------------------
@@ -478,6 +594,40 @@ extern "C" int launch_padd_masked(const void* a, const void* b, const void* mask
                                   int W, void* stream) {
   padd_masked_kernel<<<blocks(W, kThreads), kThreads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)a, (const int32_t*)b, (const int32_t*)mask, (int32_t*)out, W);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int launch_lane_scan(const void* in, const void* ids, void* out, void* scratch,
+                                int K, int C, void* stream) {
+  // A cluster of up to 8 blocks (the portable maximum) of up to 256 threads
+  // a window; beyond 2048 lanes each thread takes several.
+  const int threads = C < 256 ? (C + 31) / 32 * 32 : 256;
+  const int per_window = blocks(C, threads) < 8 ? blocks(C, threads) : 8;
+  int levels = 1;
+  while ((1 << levels) < C) levels++;  // max(ceil(log2 C), 1)
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(K * per_window);
+  cfg.blockDim = dim3(threads);
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = per_window;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, lane_scan_kernel, (const int32_t*)in,
+                                             (const int32_t*)ids, (int32_t*)out,
+                                             (int32_t*)scratch, K, C, levels);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+extern "C" int launch_assemble_buckets(const void* partial, const void* carries, const void* hist,
+                                       const void* e_pos, const void* carry, void* out, int K,
+                                       int B, int C, int L, void* stream) {
+  assemble_buckets_kernel<<<blocks(K * B, kThreads), kThreads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)partial, (const int32_t*)carries, (const int32_t*)hist,
+      (const int32_t*)e_pos, (const int32_t*)carry, (int32_t*)out, K, B, C, L);
   return (int)cudaGetLastError();
 }
 

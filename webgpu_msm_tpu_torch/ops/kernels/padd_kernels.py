@@ -1,4 +1,4 @@
-"""Wrappers, plain versions and launch counts of the nine point kernels.
+"""Wrappers, plain versions and launch counts of the eleven point kernels.
 
 Each wrapper takes int32 tensors holding u32 bits, at the JAX package's
 layouts (`ops/pallas/padd_kernels.py`). A tensor on the CPU goes to the
@@ -20,6 +20,7 @@ from . import field_kernels_mma
 KERNELS = (
     "to_niels_xy", "accumulate_scan", "padd_masked", "padd", "grouped_running_sum",
     "to_niels", "accumulate_scan_mma", "accumulate_scan_gather", "reduce_finish",
+    "lane_scan", "assemble_buckets",
 )
 launches: dict[str, int] = {name: 0 for name in KERNELS}
 
@@ -263,6 +264,94 @@ def padd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return padd_plain(a, b)
     out = torch.empty_like(a)
     _launch("padd", "launch_padd", a.data_ptr(), b.data_ptr(), out.data_ptr(), W)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 10. lane_scan: the segmented inclusive scan over the C lanes of each window
+#    of final_acc [4, 16, K * C] with final_id [K * C]: for d = 1, 2, 4, ...
+#    < C, lane c becomes v[c] + v[c - d] where c >= d and the ids of lanes c
+#    and c - d are equal (c is the lane inside its window). At the last lane
+#    of each equal-id segment: the segment's total.
+# ---------------------------------------------------------------------------
+def lane_scan_plain(final_acc: torch.Tensor, final_id: torch.Tensor, n_windows: int) -> torch.Tensor:
+    """The JAX package's seg_level loop: one `padd_masked_plain` a level."""
+    W = final_acc.shape[-1]
+    K, C = n_windows, W // n_windows
+    lane = torch.arange(C, device=final_acc.device)
+    ids = final_id.reshape(K, C)
+    carries = final_acc.reshape(4, 16, K, C)
+    for i in range(max((C - 1).bit_length(), 1)):
+        d = 1 << i
+        shifted = torch.roll(carries, d, dims=-1)
+        ok = (lane >= d) & (torch.roll(ids, d, dims=-1) == ids)
+        carries = padd_masked_plain(
+            carries.reshape(4, 16, W), shifted.reshape(4, 16, W), ok.reshape(W).to(torch.int32),
+        ).reshape(4, 16, K, C)
+    return carries.reshape(4, 16, W)
+
+
+def lane_scan(final_acc: torch.Tensor, final_id: torch.Tensor, n_windows: int) -> torch.Tensor:
+    W = final_acc.shape[-1]
+    _shape("lane_scan", final_acc, (4, 16, W))
+    _shape("lane_scan", final_id, (W,))
+    if n_windows <= 0 or W % n_windows:
+        raise ValueError(f"lane_scan: {W} lanes do not split into {n_windows} windows")
+    if not _on_card("lane_scan", final_acc, final_id):
+        return lane_scan_plain(final_acc, final_id, n_windows)
+    out = torch.empty_like(final_acc)
+    scratch = torch.empty_like(final_acc)
+    _launch(
+        "lane_scan", "launch_lane_scan", final_acc.data_ptr(), final_id.data_ptr(),
+        out.data_ptr(), scratch.data_ptr(), n_windows, W // n_windows,
+    )
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 11. assemble_buckets: bucket b of window k (hist [K, B] points, e_pos [K, B]
+#    the first sorted index past them) is partial + the lane scan's total of
+#    the lanes its run covers up to a lane edge (lane c_last = e_pos // L - 1
+#    of carries [4, 16, K * C], where c_last >= s_pos // L; the identity
+#    elsewhere); with a carry [4, 16, K * B], carry + that sum. The JAX
+#    order of adds, identities included.
+# ---------------------------------------------------------------------------
+def assemble_buckets_plain(partial: torch.Tensor, carries: torch.Tensor, hist: torch.Tensor,
+                           e_pos: torch.Tensor, chunk_len: int, carry: torch.Tensor | None = None):
+    """The index_select, where and `padd_plain` of the bucket assembly, and
+    a second `padd_plain` for the carry."""
+    (K, B), dev = hist.shape, hist.device
+    C, L = carries.shape[-1] // K, chunk_len
+    e_pos = e_pos.to(torch.int64)
+    s_pos = e_pos - hist.to(torch.int64)
+    c_last = e_pos // L - 1
+    carry_valid = c_last >= s_pos // L
+    k_idx = torch.arange(K, device=dev).reshape(K, 1)
+    carry_idx = (k_idx * C + torch.clamp(c_last, 0, C - 1)).reshape(-1)
+    picked = carries.index_select(2, carry_idx)
+    bsum = padd_plain(partial, torch.where(carry_valid.reshape(-1), picked, identity_planes((K * B,), dev)))
+    return bsum if carry is None else padd_plain(carry, bsum)
+
+
+def assemble_buckets(partial: torch.Tensor, carries: torch.Tensor, hist: torch.Tensor,
+                     e_pos: torch.Tensor, chunk_len: int, carry: torch.Tensor | None = None):
+    """[4, 16, K * B] bucket sums of one batch, added to `carry` if given.
+    `carry` is read, never written: the result is a new tensor."""
+    K, B = hist.shape
+    W = carries.shape[-1]
+    tensors = (partial, carries, hist, e_pos) + (() if carry is None else (carry,))
+    for t, shape in zip(tensors, ((4, 16, K * B), (4, 16, W), (K, B), (K, B), (4, 16, K * B))):
+        _shape("assemble_buckets", t, shape)
+    if W % K or chunk_len <= 0:
+        raise ValueError(f"assemble_buckets: {W} lanes do not split into {K} windows")
+    if not _on_card("assemble_buckets", *tensors):
+        return assemble_buckets_plain(partial, carries, hist, e_pos, chunk_len, carry)
+    out = torch.empty_like(partial)
+    _launch(
+        "assemble_buckets", "launch_assemble_buckets", partial.data_ptr(), carries.data_ptr(),
+        hist.data_ptr(), e_pos.data_ptr(), None if carry is None else carry.data_ptr(),
+        out.data_ptr(), K, B, W // K, chunk_len,
+    )
     return out
 
 

@@ -4,12 +4,13 @@ The counterpart of the JAX package's `ops/pippenger.py`:
 
 1. `compute_digits`: window split, sign flag in bit 31.
 2. `accumulate_batch` / `accumulate_buckets`: one batch, or a loop over
-   batches that adds each one's buckets with `padd`. Each batch is
+   batches, each added to a bucket carry. Each batch is
    `_accumulate_batch`: a stable sort of each window's bucket ids, the
    `accumulate_scan_gather` kernel over C lanes of L steps per window
    (it gathers the packed point rows itself and leaves each bucket's
-   in-lane partial sum), a segmented scan over lanes with `padd_masked`,
-   a bucket histogram, and bucket assembly with `padd`.
+   in-lane partial sum), the `lane_scan` kernel (the segmented scan over
+   lanes), a bucket histogram, and the `assemble_buckets` kernel (bucket
+   assembly and the carry add in one launch).
 3. `reduce_and_finish`: the grouped running sum (`grouped_running_sum`
    over the buckets of each group), then `reduce_finish` over the groups,
    which also doubles log2(Gs) times, adds and leaves the Montgomery
@@ -54,11 +55,6 @@ def identity_buckets(window_size: int, signed_digits: bool, device="cpu") -> tor
     return pk.identity_planes(shape, device)
 
 
-def _vadd(a_st: torch.Tensor, b_st: torch.Tensor) -> torch.Tensor:
-    """Unified add over stacked [4, 16, *batch] int32 points (`padd`)."""
-    return pk.padd(a_st.reshape(4, 16, -1), b_st.reshape(4, 16, -1)).reshape(a_st.shape)
-
-
 def accumulate_batch(
     points_niels: torch.Tensor,  # [3, 16, M] int32 Montgomery Niels planes
     scalar_words: torch.Tensor,  # [8, M] int64 LE u32 words
@@ -67,12 +63,14 @@ def accumulate_batch(
     n_chunks: int,
     chunk_len: int,
     signed_digits: bool = False,
+    carry: torch.Tensor | None = None,  # [4, 16, K, B] int32
 ) -> torch.Tensor:
-    """One batch -> bucket sums [4, 16, K, B] int32 (Montgomery)."""
+    """One batch -> bucket sums [4, 16, K, B] int32 (Montgomery), added to
+    `carry` (carry + sums) if one is given."""
     digits = compute_digits(scalar_words, window_size, signed_digits)
     return _accumulate_batch(
         points_niels, digits, window_size, n_chunks, chunk_len,
-        n_buckets(window_size, signed_digits),
+        n_buckets(window_size, signed_digits), carry,
     )
 
 
@@ -84,24 +82,26 @@ def accumulate_buckets(
     n_chunks: int,
     chunk_len: int,
     signed_digits: bool = False,
+    carry: torch.Tensor | None = None,  # [4, 16, K, B] int32
 ) -> torch.Tensor:
     """Bucket sums [4, 16, K, B] of n points, n a multiple of the batch
     M = n_chunks * chunk_len (callers pad with identity points and zero
-    scalars). More than one batch runs as a loop that adds each batch's
-    buckets into an identity carry, so peak memory follows the batch."""
+    scalars), added to `carry` if one is given. More than one batch runs as
+    a loop that adds each batch's buckets into the carry (an identity one
+    if none is given), so peak memory follows the batch."""
     M = n_chunks * chunk_len
     n = points.shape[-1]
     assert n % M == 0, (n, n_chunks, chunk_len)
     kw = dict(window_size=window_size, n_chunks=n_chunks, chunk_len=chunk_len,
               signed_digits=signed_digits)
     if n == M:
-        return accumulate_batch(points, scalar_words, **kw)
-    total = identity_buckets(window_size, signed_digits, points.device)
+        return accumulate_batch(points, scalar_words, carry=carry, **kw)
+    if carry is None:
+        carry = identity_buckets(window_size, signed_digits, points.device)
     for b in range(n // M):
         sl = slice(b * M, (b + 1) * M)
-        bsums = accumulate_batch(points[..., sl].contiguous(), scalar_words[:, sl], **kw)
-        total = _vadd(total, bsums)
-    return total
+        carry = accumulate_batch(points[..., sl].contiguous(), scalar_words[:, sl], carry=carry, **kw)
+    return carry
 
 
 def _accumulate_batch(
@@ -111,8 +111,10 @@ def _accumulate_batch(
     C: int,
     L: int,
     B: int,
+    carry: torch.Tensor | None = None,  # [4, 16, K, B] int32
 ) -> torch.Tensor:
-    """One batch -> bucket sums [4, 16, K, B] int32 (Montgomery)."""
+    """One batch -> bucket sums [4, 16, K, B] int32 (Montgomery), or
+    carry + sums."""
     K = windows.n_windows(w)
     M = points.shape[-1]
     assert M == C * L, (M, C, L)
@@ -138,34 +140,19 @@ def _accumulate_batch(
     final_acc, final_id, partial = pk.accumulate_scan_gather(
         rows, lanes(perm), lanes(sorted_packed), K, B
     )
-    final_id = final_id.to(torch.int64).reshape(K, C)
+    # Segmented scan over lanes (runs crossing lane edges): at the last lane
+    # of each equal-id segment, the segment's total.
+    carries = pk.lane_scan(final_acc, final_id, K)
 
-    # ---- segmented inclusive scan over lanes (runs crossing lane edges) ----
-    lane = torch.arange(C, device=dev)
-    carries = final_acc.reshape(4, 16, K, C)
-    for i in range(max((C - 1).bit_length(), 1)):
-        d = 1 << i
-        shifted = torch.roll(carries, d, dims=-1)
-        ok = (lane >= d) & (torch.roll(final_id, d, dims=-1) == final_id)
-        carries = pk.padd_masked(
-            carries.reshape(4, 16, W), shifted.reshape(4, 16, W),
-            ok.reshape(W).to(torch.int32),
-        ).reshape(4, 16, K, C)
-    # At the last lane of each equal-id segment: the segment's total.
-
-    # ---- per-bucket carry via analytic positions: the total of the lanes
-    # that the bucket's run covers up to a lane edge ----
+    # Bucket histogram and end positions; each bucket takes the total of the
+    # lanes that its run covers up to a lane edge.
     k_idx = torch.arange(K, device=dev).reshape(K, 1)
     hist = torch.bincount((k_idx * B + sorted_digits).reshape(-1), minlength=K * B)
-    hist = hist.reshape(K, B)
-    e_pos = torch.cumsum(hist, dim=1)  # first sorted index past bucket b
-    s_pos = e_pos - hist
-    c_last = e_pos // L - 1
-    carry_valid = c_last >= s_pos // L
-    carry_idx = (k_idx * C + torch.clamp(c_last, 0, C - 1)).reshape(-1)
-    carry_pts = carries.reshape(4, 16, W).index_select(2, carry_idx)
-    b_st = torch.where(carry_valid.reshape(-1), carry_pts, pk.identity_planes((K * B,), dev))
-    return pk.padd(partial, b_st).reshape(4, 16, K, B)
+    hist = hist.to(torch.int32).reshape(K, B)
+    e_pos = torch.cumsum(hist, dim=1, dtype=torch.int32)  # first sorted index past bucket b
+    if carry is not None:
+        carry = carry.reshape(4, 16, K * B)
+    return pk.assemble_buckets(partial, carries, hist, e_pos, L, carry).reshape(4, 16, K, B)
 
 
 def group_size(n_buckets: int) -> int:
