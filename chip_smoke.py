@@ -9,14 +9,16 @@
    memory.
 3. Times independent `mad.lo.u32` chains (a probe kernel in this file): the
    card's 32-bit integer multiply rate, which the operations bound of every
-   kernel uses. Runs each of the eleven kernels and its plain PyTorch version
+   kernel uses. Runs each of the twelve kernels and its plain PyTorch version
    on the card on seeded inputs at the shapes of the 2^20-point paths,
    requires every output digit to be equal, and times both with CUDA
    events (the grouped sum at the shapes of both reduction passes).
 4. Drives every path with the launch counts set to 0 just before and read
    just after; each path names the kernels it must and must not launch:
    - the wire `compute_msm` on the pinned 2^16 and 2^20 inputs (regenerated
-     from their seeds), cold and warm, with a profile of the warm call;
+     from their seeds), cold and warm, with a profile of the warm call and
+     its host dispatch time (the host's clock until `_dispatch_wire` has
+     queued the whole call, without a sync);
    - the planes path: `compute_msm` on the same 2^20 points and scalars as
      lists of `ExtPoint`s and ints (host marshalling timed apart);
    - `device_affine`: the 2^20 wire call with the affine finish on the card;
@@ -32,7 +34,9 @@
    Every result must be the pinned one or, where none is pinned, the wire
    path's on the same inputs (or the oracle's). Every `compute_msm` path
    launches the gathering scan, `lane_scan` and `assemble_buckets` once a
-   batch, and neither `padd_masked` nor `padd`.
+   batch, and neither `padd_masked` nor `padd`; every wire path and plan
+   build launches `to_niels_xy_rows` once a base batch and `to_niels_xy`
+   never.
 5. Prints the kernel table as one JSON line, then the result line.
 
 Any failure raises, and the script exits non-zero. It imports nothing of
@@ -59,7 +63,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 OPS_PER_MONT_MUL = 2 * (64 + 64 + 8)
 PALLAS = "webgpu_msm_tpu/ops/pallas/"
 CSRC = "webgpu_msm_tpu_torch/ops/kernels/csrc/"
-WIRE_KERNELS = ("to_niels_xy", "accumulate_scan_gather", "lane_scan", "assemble_buckets",
+WIRE_KERNELS = ("to_niels_xy_rows", "accumulate_scan_gather", "lane_scan", "assemble_buckets",
                 "grouped_running_sum", "reduce_finish")
 BATCH_KERNELS = ("accumulate_scan_gather", "lane_scan", "assemble_buckets")  # one launch a batch
 MAD_PROBE = """
@@ -165,6 +169,8 @@ def kernel_inputs(gen: torch.Generator, dev, M=1 << 18, K=20, C=2048, L=128, B=4
     hist = torch.stack([torch.bincount(d, minlength=B) for d in ldigits])
     e_pos = torch.cumsum(hist, dim=1)
     final_id = ldigits[:, L - 1 :: L].reshape(W)
+    # Wire x||y rows of raw u32 words, most of them above p.
+    xy_rows = torch.randint(-(1 << 31), 1 << 31, (M, 16), generator=gen, dtype=torch.int32)
     return {
         "to_niels_xy": (pts((2,), M),),
         "to_niels": (pts((3,), M),),
@@ -182,6 +188,7 @@ def kernel_inputs(gen: torch.Generator, dev, M=1 << 18, K=20, C=2048, L=128, B=4
         "lane_scan": (pts((4,), W), final_id.to(torch.int32).to(dev), K),
         "assemble_buckets": (pts((4,), K * B), pts((4,), W), hist.to(torch.int32).to(dev),
                              e_pos.to(torch.int32).to(dev), L, pts((4,), K * B)),
+        "to_niels_xy_rows": (xy_rows.to(dev),),
     }
 
 
@@ -217,6 +224,10 @@ def bound(name: str, args, ops_per_s: float) -> tuple[float, str]:
     if name == "to_niels_xy":
         M = args[0].shape[-1]
         nbytes += 3 * 16 * M * 4
+        muls = 4 * M
+    elif name == "to_niels_xy_rows":  # 64 B in (counted above), 96 B out a point
+        M = args[0].shape[0]
+        nbytes += 24 * M * 4
         muls = 4 * M
     elif name == "to_niels":
         nbytes += args[0].numel() * 4
@@ -271,12 +282,13 @@ def bound(name: str, args, ops_per_s: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def profile_call(label: str, fn, warm_ms: float, top: int = 12) -> None:
+def profile_call(label: str, fn, warm_ms: float, top: int = 12):
     """Where one warm 2^20 call's device time goes: the busiest device ops,
     the number of device launches, and the device's busy share of the
-    unprofiled warm wall time. Fails if gather kernels take more than 2 ms:
-    the scan gathers its rows itself, and the plain row gather that fed the
-    dense scan took 12.6 ms a call."""
+    unprofiled warm wall time; returns (busy ms, launches), or None if the
+    profiler recorded no device kernel. Fails if gather kernels take more
+    than 2 ms: the scan gathers its rows itself, and the plain row gather
+    that fed the dense scan took 12.6 ms a call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -288,7 +300,7 @@ def profile_call(label: str, fn, warm_ms: float, top: int = 12) -> None:
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     if not events:
         print(f"profile {label}: the profiler recorded no device kernels")
-        return
+        return None
     busy_ms = sum(dev_us(e) for e in events) / 1e3
     print(f"profile {label}: device busy {busy_ms:.1f} ms of a {warm_ms:.1f} ms warm call "
           f"(idle share {1 - busy_ms / warm_ms:.3f}), {sum(e.count for e in events)} device launches")
@@ -297,14 +309,55 @@ def profile_call(label: str, fn, warm_ms: float, top: int = 12) -> None:
     gather_ms = sum(dev_us(e) for e in events if "gather" in e.key and "accumulate_scan" not in e.key) / 1e3
     print(f"profile {label}: plain gather kernels {gather_ms:.3f} ms")
     check(gather_ms < 2.0, f"{label}: plain gather kernels take {gather_ms:.3f} ms")
+    return busy_ms, sum(e.count for e in events)
 
 
-def drive(label: str, pk, fn, must: tuple, must_not: tuple, batches: int = 0):
+def host_dispatch(api, gpu_engine, fn):
+    """One synchronized wire call `fn`: (result, host ms until the engine's
+    `_dispatch_wire` returned, having queued every copy and kernel without a
+    sync, wall ms, {host step: ms}). The steps are the API's z check, the
+    writes of x||y and of the scalars into pinned memory, and the rest of the
+    dispatch, mostly queueing the copies and launches."""
+    steps = {"z check": (api, "_wire_point_rows"), "x||y into pinned": (gpu_engine, "_stage_xy"),
+             "scalars into pinned": (gpu_engine, "_stage_scalars"),
+             "dispatch": (gpu_engine, "_dispatch_wire")}
+    spent = {name: [] for name in steps}
+    originals = {name: getattr(mod, attr) for name, (mod, attr) in steps.items()}
+
+    def timed(name):
+        def call(*args):
+            t = time.perf_counter()
+            out = originals[name](*args)
+            spent[name].append((t, time.perf_counter()))
+            return out
+        return call
+
+    for name, (mod, attr) in steps.items():
+        setattr(mod, attr, timed(name))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    finally:
+        for name, (mod, attr) in steps.items():
+            setattr(mod, attr, originals[name])
+    check(all(len(v) == 1 for v in spent.values()), f"the wire call's host steps ran {spent}")
+    ms = {name: (v[0][1] - v[0][0]) * 1e3 for name, v in spent.items()}
+    ms["rest of dispatch (queueing copies and launches)"] = (
+        ms.pop("dispatch") - ms["x||y into pinned"] - ms["scalars into pinned"])
+    return out, (spent["dispatch"][0][1] - t0) * 1e3, (t1 - t0) * 1e3, ms
+
+
+def drive(label: str, pk, fn, must: tuple, must_not: tuple, batches: int = 0,
+          conversions: int | None = None):
     """One path: launch counts set to 0, the path driven once and
     synchronized, counts read. Returns (result, wall ms, counts); fails
     unless every kernel in `must` was launched and none in `must_not`, and,
     for a `compute_msm` path of `batches` batch stages, unless each batch
-    kernel was launched once a batch."""
+    kernel was launched once a batch; with `conversions`, unless the wire
+    input stage ran that many times (once a base batch)."""
     pk.reset_launch_counts()
     out, ms = once_ms(fn)
     counts = dict(pk.launches)
@@ -315,6 +368,10 @@ def drive(label: str, pk, fn, must: tuple, must_not: tuple, batches: int = 0):
     for kname in BATCH_KERNELS if batches else ():
         check(counts[kname] == batches,
               f"{label}: kernel {kname} was launched {counts[kname]} times for {batches} batches")
+    if conversions is not None:
+        check(counts["to_niels_xy_rows"] == conversions,
+              f"{label}: to_niels_xy_rows launched {counts['to_niels_xy_rows']} times, "
+              f"not once a base batch ({conversions})")
     return out, ms, counts
 
 
@@ -322,7 +379,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
-    from webgpu_msm_tpu_torch import MSMConfig, MSMPlan, compute_msm, compute_msm_batch
+    from webgpu_msm_tpu_torch import MSMConfig, MSMPlan, api, compute_msm, compute_msm_batch
     from webgpu_msm_tpu_torch.engines import gpu_engine
     from webgpu_msm_tpu_torch.ops.kernels import build
     from webgpu_msm_tpu_torch.ops.kernels import padd_kernels as pk
@@ -359,6 +416,7 @@ def main() -> int:
     padd_py, padd_cu, mma_cu = PALLAS + "padd_kernels.py:{}", CSRC + "padd_kernels.cu", CSRC + "mma_kernels.cu"
     # name -> (wrapper, plain version, TPU kernel, source, timed launches)
     kernels = {
+        # the planes kernel of the TPU contract, on no path since to_niels_xy_rows
         "to_niels_xy": (pk.to_niels_xy, pk.to_niels_xy_plain, padd_py.format(498), padd_cu, 20),
         "accumulate_scan": (pk.accumulate_scan, pk.accumulate_scan_plain, padd_py.format(258), padd_cu, 3),
         "padd_masked": (pk.padd_masked, pk.padd_masked_plain, padd_py.format(158), padd_cu, 20),
@@ -376,6 +434,10 @@ def main() -> int:
         "lane_scan": (pk.lane_scan, pk.lane_scan_plain, padd_py.format(158), padd_cu, 20),
         # padd in the bucket assembly (pippenger.py:385) and the engines' carry add
         "assemble_buckets": (pk.assemble_buckets, pk.assemble_buckets_plain, padd_py.format(141),
+                             padd_cu, 20),
+        # to_niels_xy with the BE unpack before it (tpu_engine.py:353, _wire_niels)
+        # and the row packing after it, on every wire path
+        "to_niels_xy_rows": (pk.to_niels_xy_rows, pk.to_niels_xy_rows_plain, padd_py.format(498),
                              padd_cu, 20),
     }
     check(tuple(kernels) == pk.KERNELS, "the kernel table does not list the package's kernels")
@@ -445,19 +507,24 @@ def main() -> int:
         _, _, pw, sw = inputs[power]
         wire = lambda: compute_msm(pw, sw, config=cfg, device=dev)
         res, cold_ms, counts = drive(f"wire 2^{power}", pk, wire, WIRE_KERNELS, others(*WIRE_KERNELS),
-                                     n_batches(1 << power))
+                                     n_batches(1 << power), n_batches(1 << power))
         check(as_xy(res) == PINNED[power], f"2^{power}: result differs from PINNED")
         print(f"compute_msm 2^{power}: equals PINNED[{power}]; launches {counts}")
         if power == 20:
-            # padd_masked and padd: 0, on no compute_msm path since lane_scan
-            # and assemble_buckets
-            for kname in WIRE_KERNELS + ("padd_masked", "padd"):
+            # padd_masked, padd and to_niels_xy: 0, on no compute_msm path
+            # since lane_scan, assemble_buckets and to_niels_xy_rows
+            for kname in WIRE_KERNELS + ("padd_masked", "padd", "to_niels_xy"):
                 rows[kname]["launches"] = counts[kname]
-            res, warm_ms = once_ms(wire)
+            res, dispatch_ms, warm_ms, split = host_dispatch(api, gpu_engine, wire)
             check(as_xy(res) == PINNED[power], "2^20 warm call differs from PINNED")
             print(f"compute_msm 2^20 wall: cold {cold_ms / 1e3:.3f} s ({rate(cold_ms)}), "
                   f"warm {warm_ms / 1e3:.3f} s ({rate(warm_ms)}) [{smi}]")
-            profile_call("wire 2^20", wire, warm_ms)
+            busy = profile_call("wire 2^20", wire, warm_ms)
+            busy_ms, n_launches = busy if busy else (float("nan"), 0)
+            print(f"compute_msm 2^20 warm: host dispatch {dispatch_ms:.1f} ms, wall {warm_ms:.1f} ms, "
+                  f"device busy {busy_ms:.2f} ms, {n_launches} device launches [{smi}]")
+            print("compute_msm 2^20 warm host dispatch by step: "
+                  + ", ".join(f"{k} {v:.1f} ms" for k, v in split.items()))
 
     # 4b. the planes path: the same input as lists of ExtPoints and ints
     t0 = time.perf_counter()
@@ -476,7 +543,7 @@ def main() -> int:
     # 4c. device_affine: the wire call with the affine finish on the card
     affine = lambda: compute_msm(pts, sc, config=MSMConfig(device_affine=True), device=dev)
     res, cold_ms, counts = drive("device_affine 2^20", pk, affine, WIRE_KERNELS, others(*WIRE_KERNELS),
-                                 n_batches(N))
+                                 n_batches(N), n_batches(N))
     check(as_xy(res) == PINNED[20], "device_affine 2^20: result differs from PINNED")
     res, warm_ms = once_ms(affine)
     check(as_xy(res) == PINNED[20], "device_affine 2^20 warm call differs from PINNED")
@@ -490,9 +557,8 @@ def main() -> int:
                    for seed in (2020, 3020)]
     want = [PINNED[20]] + [as_xy(compute_msm(pts, s, config=cfg, device=dev)) for s in jobs[1:]]
     plan, build_ms, counts = drive("plan build 2^20", pk, lambda: MSMPlan(pts, config=cfg, device=dev),
-                                   ("to_niels_xy",), others("to_niels_xy"))
-    check(counts["to_niels_xy"] == n_batches(N),
-          f"plan build: to_niels_xy launched {counts['to_niels_xy']} times for {n_batches(N)} batches")
+                                   ("to_niels_xy_rows",), others("to_niels_xy_rows"),
+                                   conversions=n_batches(N))
     job_kernels = WIRE_KERNELS[1:]
     got, batch_ms, counts = drive("plan jobs 2^20", pk, lambda: plan.msm_batch(jobs),
                                   job_kernels, others(*job_kernels), len(jobs) * n_batches(N))
@@ -515,10 +581,9 @@ def main() -> int:
                                                ("distinct arrays", [pw, pw.copy()], 2)):
         got, ms, counts = drive(f"compute_msm_batch 2^16, {label}", pk,
                                 lambda: compute_msm_batch(point_arrays, [sw, sw2], config=cfg, device=dev),
-                                WIRE_KERNELS, others(*WIRE_KERNELS), 2 * n_batches(len(sw)))
+                                WIRE_KERNELS, others(*WIRE_KERNELS), 2 * n_batches(len(sw)),
+                                n_conversions * n_batches(len(sw)))
         check([as_xy(r) for r in got] == want, f"compute_msm_batch ({label}): results differ")
-        check(counts["to_niels_xy"] == n_conversions,
-              f"compute_msm_batch ({label}): to_niels_xy launched {counts['to_niels_xy']} times")
         print(f"compute_msm_batch 2^16, {label}: 2 jobs equal PINNED[16] / the wire path in "
               f"{ms / 1e3:.3f} s; launches {counts} [{smi}]")
 
@@ -534,7 +599,8 @@ def main() -> int:
     oracle_s = time.perf_counter() - t0
     same = convert.bigints_to_u32_be([s_one] * len(points16))
     res, ms, counts = drive("equal scalars 2^16", pk, lambda: compute_msm(pw, same, config=cfg, device=dev),
-                            WIRE_KERNELS, others(*WIRE_KERNELS), n_batches(len(points16)))
+                            WIRE_KERNELS, others(*WIRE_KERNELS), n_batches(len(points16)),
+                            n_batches(len(points16)))
     check(as_xy(res) == want, "equal scalars 2^16: result differs from the oracle's s * sum(P)")
     print(f"equal scalars 2^16: equals the oracle's s * sum(P) (oracle {oracle_s:.1f} s on the host); "
           f"{ms / 1e3:.3f} s; launches {counts} [{smi}]")

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from webgpu_msm_tpu_torch import MSMConfig, MSMPlan, compute_msm
+from webgpu_msm_tpu_torch import MSMConfig, MSMPlan, compute_msm, compute_msm_batch
 from webgpu_msm_tpu_torch.ops.kernels import padd_kernels as pk
 from webgpu_msm_tpu_torch.oracle import curve, msm
 from webgpu_msm_tpu_torch.utils import convert, fixtures
@@ -36,8 +36,21 @@ def rand_planes(rng, lead, width):
     return d
 
 
+def raw_xy_rows(rng, m):
+    """[m, 16] wire x||y rows of raw u32 words (most above p), with rows of
+    zeros, all-ones words and the identity (x = 0, y = 1) first."""
+    xy = rng.integers(0, 1 << 32, size=(m, 16), dtype=np.uint32)
+    special = np.zeros((3, 16), dtype=np.uint32)
+    special[1] = 0xFFFFFFFF
+    special[2, 15] = 1
+    xy[: min(m, 3)] = special[: min(m, 3)]
+    return xy
+
+
 def _inputs(name, rng, dev, width=300):
     t = lambda arr: planes_from_numpy(arr, dev)
+    if name == "to_niels_xy_rows":
+        return (t(raw_xy_rows(rng, width)),)
     if name == "to_niels_xy":
         return (t(rand_planes(rng, (2,), width)),)
     if name == "to_niels":
@@ -169,6 +182,16 @@ def test_lane_scan_and_assemble_buckets_on_card(cuda, C):
     assert torch.equal(carry, before)
 
 
+@pytest.mark.parametrize("m", [1, 3, 129, 1 << 18])
+def test_to_niels_xy_rows_on_card(cuda, m):
+    """The wire input stage at 1, 3 and 129 rows (a partial block) and at a
+    2^20 call's batch, raw words above p included."""
+    xy = planes_from_numpy(raw_xy_rows(np.random.default_rng(m), m), cuda)
+    got = pk.to_niels_xy_rows(xy)
+    assert got.device.type == "cuda" and tuple(got.shape) == (m, 24)
+    assert torch.equal(got, pk.to_niels_xy_rows_plain(xy))
+
+
 def test_equal_scalars_on_card_match_oracle(cuda):
     """2^16 points, every scalar s: every window has one bucket over all its
     lanes, so every level of the lane scan adds, in every lane it can."""
@@ -194,7 +217,7 @@ def test_compute_msm_on_card_matches_oracle(cuda):
         config=MSMConfig(window_size=8, n_chunks=4, chunk_len=4), device=cuda,
     )
     assert (got.x, got.y) == want
-    used = ("to_niels_xy", "accumulate_scan_gather", "lane_scan", "assemble_buckets",
+    used = ("to_niels_xy_rows", "accumulate_scan_gather", "lane_scan", "assemble_buckets",
             "grouped_running_sum", "reduce_finish")
     assert all(pk.launches[name] > 0 for name in used), pk.launches
     assert all(pk.launches[name] == 0 for name in pk.KERNELS if name not in used), pk.launches
@@ -208,14 +231,15 @@ def test_tensor_core_scan_equals_cios_scan_on_card(cuda):
 
 @pytest.mark.parametrize("device_affine", [False, True])
 def test_list_input_on_card_matches_oracle(cuda, device_affine):
-    """Lists take the planes path: `to_niels`, never `to_niels_xy`."""
+    """Lists take the planes path: `to_niels`, never a wire conversion."""
     pts = fixtures.distinct_points_fast(48, seed=53)
     scalars = fixtures.random_scalars(48, seed=54)
     pk.reset_launch_counts()
     got = compute_msm(pts, scalars, device=cuda, config=MSMConfig(
         window_size=8, n_chunks=4, chunk_len=4, device_affine=device_affine))
     assert (got.x, got.y) == curve.to_affine(msm.msm(pts, scalars, 8))
-    assert pk.launches["to_niels"] == 3 and pk.launches["to_niels_xy"] == 0
+    assert pk.launches["to_niels"] == 3
+    assert pk.launches["to_niels_xy_rows"] == pk.launches["to_niels_xy"] == 0
 
 
 def test_msm_plan_on_card_matches_oracle(cuda):
@@ -224,7 +248,23 @@ def test_msm_plan_on_card_matches_oracle(cuda):
     pk.reset_launch_counts()
     plan = MSMPlan(fixtures.wire_points(pts), device=cuda,
                    config=MSMConfig(window_size=8, n_chunks=4, chunk_len=4))
-    assert pk.launches["to_niels_xy"] == 3
+    assert pk.launches["to_niels_xy_rows"] == 3 and pk.launches["to_niels_xy"] == 0
     got = plan.msm_batch([convert.bigints_to_u32_be(jobs[0]), jobs[1]])
     assert [(r.x, r.y) for r in got] == [curve.to_affine(msm.msm(pts, sc, 8)) for sc in jobs]
-    assert pk.launches["to_niels_xy"] == 3 and pk.launches["accumulate_scan_gather"] == 6
+    assert pk.launches["to_niels_xy_rows"] == 3 and pk.launches["accumulate_scan_gather"] == 6
+    assert pk.launches["to_niels_xy"] == 0
+
+
+def test_queued_wire_jobs_do_not_share_staging_buffers(cuda):
+    """Three wire jobs with distinct point arrays, all queued before any is
+    fetched: each writes its rows into its own pinned host buffer, which the
+    caching host allocator hands out again only after its copies have run.
+    Each result equals the job's single call."""
+    n, cfg = 1 << 12, MSMConfig(window_size=10, n_chunks=64, chunk_len=16)
+    jobs = [(fixtures.wire_points(fixtures.distinct_points_fast(n, seed=70 + j)),
+             convert.bigints_to_u32_be(fixtures.random_scalars(n, seed=80 + j))) for j in range(3)]
+    singles = [compute_msm(p, s, config=cfg, device=cuda) for p, s in jobs]
+    pk.reset_launch_counts()
+    got = compute_msm_batch([p for p, _ in jobs], [s for _, s in jobs], config=cfg, device=cuda)
+    assert got == singles
+    assert pk.launches["to_niels_xy_rows"] == 3 * 4 and pk.launches["to_niels_xy"] == 0

@@ -194,7 +194,7 @@ def test_every_kernel_has_a_count_and_a_plain_version():
     assert pk.KERNELS == ("to_niels_xy", "accumulate_scan", "padd_masked", "padd",
                           "grouped_running_sum", "to_niels", "accumulate_scan_mma",
                           "accumulate_scan_gather", "reduce_finish", "lane_scan",
-                          "assemble_buckets")
+                          "assemble_buckets", "to_niels_xy_rows")
     assert set(pk.launches) == set(pk.KERNELS)
     for name in pk.KERNELS[:6] + pk.KERNELS[7:]:
         assert callable(getattr(pk, name)) and callable(getattr(pk, name + "_plain"))

@@ -21,10 +21,12 @@ import webgpu_msm_tpu_torch as tm
 from webgpu_msm_tpu_torch import MSMConfig
 from webgpu_msm_tpu_torch import api
 from webgpu_msm_tpu_torch.engines import gpu_engine
+from webgpu_msm_tpu_torch.ops import pippenger
 from webgpu_msm_tpu_torch.ops.kernels import padd_kernels as pk
 from webgpu_msm_tpu_torch.oracle.curve import ExtPoint
 from webgpu_msm_tpu_torch.utils import convert, fixtures
-from webgpu_msm_tpu_torch.utils.interop import planes_to_numpy, wire_plan_from_jax_state
+from webgpu_msm_tpu_torch.utils.interop import (
+    planes_from_numpy, planes_to_numpy, wire_plan_from_jax_state)
 
 # The tensors here are tiny: extra intra-op threads only contend with the
 # other test workers.
@@ -67,9 +69,10 @@ def test_wire_plan_matches_jax(case, jax_plan):
     plan = gpu_engine.WirePlan(pw, CFG, "cpu")
     for name in ("n", "w", "C", "L", "pad_to"):
         assert getattr(plan, name) == getattr(jplan, name), name
-    assert len(plan._niels) == len(jplan._niels) == 1
-    for a, b in zip(plan._niels, jplan._niels):
-        np.testing.assert_array_equal(planes_to_numpy(a), np.asarray(b))
+    assert len(plan._rows) == len(jplan._niels) == 1
+    for a, b in zip(plan._rows, jplan._niels):  # the JAX Niels planes as the scan's rows
+        np.testing.assert_array_equal(planes_to_numpy(a), planes_to_numpy(pippenger.pack_rows(
+            planes_from_numpy(np.asarray(b)))))
     assert plan.msm_affine_batch(sws[:2]) == jresults == want[:2]
     assert plan.msm_affine(sws[2]) == want[2]
 
@@ -82,7 +85,7 @@ def test_plan_from_jax_state_runs_the_jobs(case, jax_plan):
         [np.asarray(a) for a in jplan._niels], n=jplan.n, w=jplan.w, C=jplan.C, L=jplan.L,
         pad_to=jplan.pad_to, config=CFG, device="cpu",
     )
-    assert isinstance(plan, gpu_engine.WirePlan) and plan._niels[0].dtype == torch.int32
+    assert isinstance(plan, gpu_engine.WirePlan) and plan._rows[0].dtype == torch.int32
     assert plan.msm_affine_batch(sws[:2]) == jresults == want[:2]
     with pytest.raises(ValueError, match="do not match"):
         wire_plan_from_jax_state([np.asarray(jplan._niels[0])], n=N, w=8, C=2, L=4, pad_to=16,
@@ -102,13 +105,14 @@ def test_dispatch_queues_without_fetching(case):
 
 
 def test_bases_are_converted_once(case, monkeypatch):
-    """`to_niels_xy` runs once per base batch at construction and never
-    for a job; two batches give the one-batch plan's results."""
+    """`to_niels_xy_rows` runs once per base batch at construction and
+    never for a job; two batches give the one-batch plan's results."""
     _, _, pw, sws, want = case
     calls = []
-    monkeypatch.setattr(pk, "to_niels_xy", lambda t, f=pk.to_niels_xy: (calls.append(1), f(t))[1])
+    monkeypatch.setattr(pk, "to_niels_xy_rows",
+                        lambda t, f=pk.to_niels_xy_rows: (calls.append(1), f(t))[1])
     plan = gpu_engine.WirePlan(pw, CFG_2_BATCHES, "cpu")
-    assert len(calls) == len(plan._niels) == 2
+    assert len(calls) == len(plan._rows) == 2
     assert plan.msm_affine_batch(sws[1:]) == want[1:]
     assert len(calls) == 2
 

@@ -44,27 +44,36 @@ def _check_engine(engine: Optional[str]) -> None:
         )
 
 
-def _wire_points_ok(points: np.ndarray) -> bool:
-    """The wire path's preconditions on the point side: an integer array of
-    whole [n, 32] rows with z == 1."""
+def _wire_point_rows(points: np.ndarray) -> Optional[np.ndarray]:
+    """The point array as contiguous [n, 32] u32 rows if it meets the wire
+    path's preconditions on the point side (an integer array of whole rows
+    with z == 1), else None. This is the one z check of a call: the engine
+    takes the rows without reading them for it again."""
     if not np.issubdtype(points.dtype, np.integer):
-        return False
+        return None
     if points.size == 0 or points.size % 32 != 0:
-        return False
-    z = convert.as_u32_array(points, "wire points").reshape(-1, 32)[:, 24:32]
-    return bool(np.all(z[:, :7] == 0) and np.all(z[:, 7] == 1))
+        return None
+    rows = gpu_engine.as_wire_rows(points)
+    return rows if gpu_engine.z_is_one(rows) else None
+
+
+def _wire_inputs(points: np.ndarray, scalars: np.ndarray, rows: Optional[np.ndarray] = None):
+    """(point rows, [n, 8] scalar rows) if the two arrays meet the wire
+    path's preconditions, else None; checked up front so that inside the
+    path any error is a real fault. Integer arrays wider than u32 are
+    range-checked: a word of 2^32 or more raises instead of being cut.
+    `rows`: the point array's rows, already checked."""
+    if scalars.size != points.size // 4:  # n*8 scalar words against n*32 point words
+        return None
+    rows = _wire_point_rows(points) if rows is None else rows
+    if rows is None:
+        return None
+    return rows, convert.as_u32_array(scalars, "wire scalars").reshape(-1, 8)
 
 
 def _wire_fast_path_ok(points: np.ndarray, scalars: np.ndarray) -> bool:
-    """The wire path's preconditions, checked up front so that inside it
-    any error is a real fault. Integer arrays wider than u32 are
-    range-checked: a word of 2^32 or more raises instead of being cut."""
-    if scalars.size != points.size // 4:  # n*8 scalar words against n*32 point words
-        return False
-    if not _wire_points_ok(points):
-        return False
-    convert.as_u32_array(scalars, "wire scalars")
-    return True
+    """The JAX package's predicate of the same name."""
+    return _wire_inputs(points, scalars) is not None
 
 
 def _normalize_scalars(scalars: Any) -> list[int]:
@@ -112,12 +121,10 @@ def compute_msm(
     config = config or MSMConfig()
     dev = gpu_engine.resolve_device(device)
 
-    if (
-        isinstance(points, np.ndarray)
-        and isinstance(scalars, np.ndarray)
-        and _wire_fast_path_ok(points, scalars)
-    ):
-        return AffinePoint(*gpu_engine.msm_affine_wire(points, scalars, config, dev))
+    wire = (_wire_inputs(points, scalars)
+            if isinstance(points, np.ndarray) and isinstance(scalars, np.ndarray) else None)
+    if wire is not None:
+        return AffinePoint(*gpu_engine.msm_affine_wire(*wire, config, dev, True))  # z checked
 
     pts = _normalize_points(points)
     sc = _normalize_scalars(scalars)
@@ -154,17 +161,13 @@ def compute_msm_batch(
         )
     dev = gpu_engine.resolve_device(device)
 
-    if points_list and all(
-        isinstance(p, np.ndarray) and isinstance(s, np.ndarray) and _wire_fast_path_ok(p, s)
-        for p, s in zip(points_list, scalars_list)
-    ):
-        if len(points_list) > 1 and all(p is points_list[0] for p in points_list):
-            plan = gpu_engine.WirePlan(points_list[0], config, dev)
-            results = plan.msm_affine_batch(scalars_list)
+    wire = _wire_jobs(points_list, scalars_list)
+    if wire:
+        if len(wire) > 1 and all(p is points_list[0] for p in points_list):
+            plan = gpu_engine.WirePlan(wire[0][0], config, dev, True)  # z checked
+            results = plan.msm_affine_batch([sc for _, sc in wire])
         else:
-            results = gpu_engine.msm_affine_batch_wire(
-                list(zip(points_list, scalars_list)), config, dev
-            )
+            results = gpu_engine.msm_affine_batch_wire(wire, config, dev, True)
     else:
         jobs = [
             (_normalize_points(p), _normalize_scalars(s))
@@ -172,6 +175,22 @@ def compute_msm_batch(
         ]
         results = gpu_engine.msm_affine_batch(jobs, config, dev)
     return [AffinePoint(x, y) for x, y in results]
+
+
+def _wire_jobs(points_list: Sequence[Any], scalars_list: Sequence[Any]) -> Optional[list]:
+    """Each job's `_wire_inputs` if every job meets the wire path's
+    preconditions, else None. A point array that several jobs share is
+    checked once."""
+    jobs, checked = [], {}
+    for p, s in zip(points_list, scalars_list):
+        if not (isinstance(p, np.ndarray) and isinstance(s, np.ndarray)):
+            return None
+        job = _wire_inputs(p, s, checked.get(id(p)))
+        if job is None:
+            return None
+        checked[id(p)] = job[0]
+        jobs.append(job)
+    return jobs
 
 
 def _points_to_wire_rows(points: list[ExtPoint]) -> np.ndarray:
@@ -209,10 +228,11 @@ class MSMPlan:
         _check_engine(engine)
         self.config = config or MSMConfig()
         dev = gpu_engine.resolve_device(device)
-        if not (isinstance(points, np.ndarray) and _wire_points_ok(points)):
-            # one marshal on the host to wire rows, then the same plan
-            points = _points_to_wire_rows(_normalize_points(points))
-        self._plan = gpu_engine.WirePlan(points, self.config, dev)
+        rows = _wire_point_rows(points) if isinstance(points, np.ndarray) else None
+        if rows is None:
+            # one marshal on the host to wire rows (z == 1), then the same plan
+            rows = _points_to_wire_rows(_normalize_points(points))
+        self._plan = gpu_engine.WirePlan(rows, self.config, dev, True)  # z checked
         self.n = self._plan.n
 
     @staticmethod

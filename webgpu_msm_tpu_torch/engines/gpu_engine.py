@@ -4,14 +4,15 @@
 Three ways in, one device pipeline:
 
 - the **wire path** (`msm_affine_wire`): [n, 32] / [n, 8] big-endian u32
-  rows; the host pads and copies x||y and scalar rows per batch, and the
-  device unpacks them and converts with the `to_niels_xy` kernel;
+  rows; the host writes x||y and the scalar rows once, padded, into pinned
+  memory and copies them batch by batch, and the `to_niels_xy_rows` kernel
+  turns each batch's x||y rows into the scan's packed Niels rows;
 - the **planes path** (`msm_affine`, `msm_affine_batch`): lists of points
   and scalars, marshalled on the host into [3, 16, n] plain digit planes
   and [8, n] scalar words, converted on the device with the `to_niels`
   kernel;
-- the **fixed-base plan** (`WirePlan`): the bases' Niels planes stay on
-  the device and each job copies only its scalar rows.
+- the **fixed-base plan** (`WirePlan`): the bases' packed Niels rows stay
+  on the device and each job copies only its scalar rows.
 
 Each batch stage adds its buckets into a device-resident bucket carry; one
 finish stage reduces the carry to window sums (extended, or affine with
@@ -68,13 +69,12 @@ def _be_rows_to_words_le(rows_be: torch.Tensor) -> torch.Tensor:
 
 
 def _wire_niels(xy_be: torch.Tensor) -> torch.Tensor:
-    """[M, 16] BE x||y rows (int32 bits) -> [3, 16, M] Montgomery Niels."""
+    """[M, 16] BE x||y rows (int32 bits) -> [3, 16, M] Montgomery Niels: the
+    JAX `_wire_niels`. No path calls it: the wire path and the plan take
+    the same rows to the scan's packed rows in one `to_niels_xy_rows`."""
     xy = limbs.as_i64(xy_be)
     planes = torch.stack([_be_cols_to_planes(xy[:, :8]), _be_cols_to_planes(xy[:, 8:])])
     return pk.to_niels_xy(planes.to(torch.int32))
-
-
-_plan_niels_impl = _wire_niels  # the plan's resident bases: one call per batch
 
 
 def _identity_carry(window_size: int, signed_digits: bool, device) -> torch.Tensor:
@@ -92,19 +92,20 @@ def _batch_planes_impl(points_plain, scalar_words, carry_st, *, window_size, n_c
     )
 
 
-def _fixed_batch_impl(pts_niels, scalars_be, carry_st, *, window_size, n_chunks,
+def _fixed_batch_impl(pts_rows, scalars_be, carry_st, *, window_size, n_chunks,
                       chunk_len, signed_digits=False):
-    """One fixed-base batch: resident Niels points + this job's [M, 8] BE
-    scalar rows."""
-    return pippenger.accumulate_buckets(
-        pts_niels, _be_rows_to_words_le(scalars_be), window_size=window_size,
+    """One fixed-base batch: resident packed Niels rows [M, 24] + this
+    job's [M, 8] BE scalar rows."""
+    return pippenger.accumulate_rows(
+        pts_rows, _be_rows_to_words_le(scalars_be), window_size=window_size,
         n_chunks=n_chunks, chunk_len=chunk_len, signed_digits=signed_digits, carry=carry_st,
     )
 
 
 def _wire_batch_impl(xy_be, scalars_be, carry_st, **static):
-    """One wire batch: carry [4, 16, K, B] + this batch's bucket sums."""
-    return _fixed_batch_impl(_wire_niels(xy_be), scalars_be, carry_st, **static)
+    """One wire batch of [M, 16] BE x||y rows: carry [4, 16, K, B] + this
+    batch's bucket sums."""
+    return _fixed_batch_impl(pk.to_niels_xy_rows(xy_be), scalars_be, carry_st, **static)
 
 
 def _finish_impl(carry_st: torch.Tensor) -> torch.Tensor:
@@ -137,6 +138,37 @@ def _host_tensor(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     that its copies to the device do not block the host."""
     t = torch.from_numpy(np.ascontiguousarray(arr, dtype=np.uint32).view(np.int32))
     return t.pin_memory() if device.type == "cuda" else t
+
+
+def _staging(shape: tuple, device: torch.device) -> tuple[torch.Tensor, np.ndarray]:
+    """An int32 host tensor to be filled, and its numpy u32 view. For a GPU
+    it is pinned, from PyTorch's caching host allocator, which hands a
+    block out again only after the copies queued from it have run: jobs
+    queued before any fetch never share a buffer."""
+    t = torch.empty(shape, dtype=torch.int32, pin_memory=device.type == "cuda")
+    return t, t.numpy().view(np.uint32)
+
+
+def _stage_xy(rows: np.ndarray, pad_to: int, device: torch.device) -> torch.Tensor:
+    """The x||y words of [n, 32] wire rows, written once into a
+    [pad_to, 16] host tensor; the rows past n are the identity, x = 0 and
+    y = 1 (the BE low word)."""
+    t, a = _staging((pad_to, 16), device)
+    n = rows.shape[0]
+    np.copyto(a[:n], rows[:, :16])
+    a[n:] = 0
+    a[n:, 15] = 1
+    return t
+
+
+def _stage_scalars(scalars_be: np.ndarray, pad_to: int, device: torch.device) -> torch.Tensor:
+    """[n, 8] BE scalar rows written once into a [pad_to, 8] host tensor,
+    zero past n."""
+    t, a = _staging((pad_to, 8), device)
+    n = scalars_be.shape[0]
+    np.copyto(a[:n], scalars_be)
+    a[n:] = 0
+    return t
 
 
 def window_sums_to_points(wsums: np.ndarray) -> list[ExtPoint]:
@@ -283,11 +315,28 @@ def msm_affine_batch(jobs: Sequence[tuple[Sequence[ExtPoint], Sequence[int]]],
 # ---------------------------------------------------------------------------
 
 
-def _wire_rows(points_be: np.ndarray, what: str) -> np.ndarray:
-    """Wire points as contiguous [n, 32] u32 rows; z must be 1."""
-    rows = np.ascontiguousarray(convert.as_u32_array(points_be, "wire points")).reshape(-1, 32)
-    z = rows[:, 24:32]
-    if not (np.all(z[:, :7] == 0) and np.all(z[:, 7] == 1)):
+# z == 1 as the last four u64 words of a row, from a view, so that it holds
+# on any byte order.
+_Z_ONE = np.array([0] * 7 + [1], dtype=np.uint32).view(np.uint64)
+
+
+def as_wire_rows(points_be: np.ndarray) -> np.ndarray:
+    """Wire points as contiguous [n, 32] u32 rows; a wider integer array is
+    range-checked."""
+    return np.ascontiguousarray(convert.as_u32_array(points_be, "wire points")).reshape(-1, 32)
+
+
+def z_is_one(rows: np.ndarray) -> bool:
+    """Whether every contiguous [n, 32] u32 row has z == 1: one pass, z
+    read as four u64 words a row."""
+    return bool((rows.view(np.uint64)[:, 12:] == _Z_ONE).all())
+
+
+def _wire_rows(points_be: np.ndarray, what: str, z_checked: bool = False) -> np.ndarray:
+    """Wire points as contiguous [n, 32] u32 rows; z must be 1, which is
+    checked here unless the caller has (`z_checked`)."""
+    rows = as_wire_rows(points_be)
+    if not (z_checked or z_is_one(rows)):
         raise ValueError(f"{what} requires z == 1")
     return rows
 
@@ -296,36 +345,25 @@ def _scalar_rows(scalars_be: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(convert.as_u32_array(scalars_be, "wire scalars")).reshape(-1, 8)
 
 
-def _padded_xy(rows: np.ndarray, pad_to: int) -> np.ndarray:
-    """[n, 32] wire rows -> [pad_to, 16] x||y rows, padded with the
-    identity: x = 0, y = 1 (the BE low word)."""
-    xy = np.zeros((pad_to, 16), dtype=np.uint32)
-    xy[: rows.shape[0]] = rows[:, :16]
-    xy[rows.shape[0] :, 15] = 1
-    return xy
+def _signed_wire(config: MSMConfig, scalars_be: np.ndarray) -> bool:
+    """Whether signed digits apply: they need scalars < 2^254, and BE word 0
+    is the top word."""
+    return config.signed_digits and bool(np.all(scalars_be[:, 0] < (1 << 29)))
 
 
-def _padded_scalars(scalars_be: np.ndarray, pad_to: int, config: MSMConfig):
-    """([pad_to, 8] scalar rows padded with zeros, whether signed digits
-    apply: they need scalars < 2^254, and BE word 0 is the top word)."""
-    sc = np.zeros((pad_to, 8), dtype=np.uint32)
-    sc[: scalars_be.shape[0]] = scalars_be
-    return sc, config.signed_digits and bool(np.all(scalars_be[:, 0] < (1 << 29)))
-
-
-def _device_msm_wire_staged(xy: np.ndarray, sc: np.ndarray, *, window_size, n_chunks,
+def _device_msm_wire_staged(xy_t: torch.Tensor, sc_t: torch.Tensor, *, window_size, n_chunks,
                             chunk_len, signed_digits, device_affine=False,
                             device: torch.device) -> torch.Tensor:
-    """Staged wire MSM over padded [n, 16] x||y and [n, 8] scalar rows.
+    """Staged wire MSM over padded [n, 16] x||y and [n, 8] scalar rows in
+    host tensors (`_stage_xy`, `_stage_scalars`).
 
     Each batch's rows are copied with non_blocking=True from pinned host
     memory, so the host queues the copies and kernels of every batch
     without waiting; the carry stays on the device.
     """
     M = n_chunks * chunk_len
-    n = xy.shape[0]
+    n = xy_t.shape[0]
     assert n % M == 0, (n, M)
-    xy_t, sc_t = _host_tensor(xy, device), _host_tensor(sc, device)
     carry = _identity_carry(window_size, signed_digits, device)
     for b in range(n // M):
         dxy = xy_t[b * M : (b + 1) * M].to(device, non_blocking=True)
@@ -338,35 +376,38 @@ def _device_msm_wire_staged(xy: np.ndarray, sc: np.ndarray, *, window_size, n_ch
 
 
 def _dispatch_wire(points_be: np.ndarray, scalars_be: np.ndarray, config: MSMConfig,
-                   device: torch.device):
-    """Validate and pad wire inputs and queue the device pipeline; returns
-    (window sums on the device, window size) without synchronizing, so a
-    caller can queue many jobs before it fetches any."""
-    rows = _wire_rows(points_be, "the wire path")
+                   device: torch.device, z_checked: bool = False):
+    """Validate wire inputs, write them once into pinned memory and queue
+    the device pipeline; returns (window sums on the device, window size)
+    without synchronizing, so a caller can queue many jobs before it
+    fetches any."""
+    rows = _wire_rows(points_be, "the wire path", z_checked)
     scalars_be = _scalar_rows(scalars_be)
     n = rows.shape[0]
     if scalars_be.shape[0] != n:
         raise ValueError(f"points/scalars length mismatch: {n} vs {scalars_be.shape[0]}")
     w, C, L, pad_to = _padded_plan(config, n)
-    sc, signed = _padded_scalars(scalars_be, pad_to, config)
     out = _device_msm_wire_staged(
-        _padded_xy(rows, pad_to), sc, window_size=w, n_chunks=C, chunk_len=L,
-        signed_digits=signed, device_affine=config.device_affine, device=device,
+        _stage_xy(rows, pad_to, device), _stage_scalars(scalars_be, pad_to, device),
+        window_size=w, n_chunks=C, chunk_len=L, signed_digits=_signed_wire(config, scalars_be),
+        device_affine=config.device_affine, device=device,
     )
     return out, w
 
 
 def msm_affine_wire(points_be: np.ndarray, scalars_be: np.ndarray, config: MSMConfig,
-                    device: torch.device) -> tuple[int, int]:
-    """Wire-format MSM: [n, 32] BE point rows (z == 1), [n, 8] BE scalars."""
-    return _fetch_affine(*_dispatch_wire(points_be, scalars_be, config, device))
+                    device: torch.device, z_checked: bool = False) -> tuple[int, int]:
+    """Wire-format MSM: [n, 32] BE point rows (z == 1), [n, 8] BE scalars.
+    `z_checked`: the caller has checked z == 1 (the API does), so the rows
+    are not read for it again."""
+    return _fetch_affine(*_dispatch_wire(points_be, scalars_be, config, device, z_checked))
 
 
 def msm_affine_batch_wire(jobs: Sequence[tuple[np.ndarray, np.ndarray]], config: MSMConfig,
-                          device: torch.device) -> list[tuple[int, int]]:
+                          device: torch.device, z_checked: bool = False) -> list[tuple[int, int]]:
     """Many wire MSMs: every job's copies and kernels are queued before any
     result is fetched."""
-    queued = [_dispatch_wire(points_be, scalars_be, config, device)
+    queued = [_dispatch_wire(points_be, scalars_be, config, device, z_checked)
               for points_be, scalars_be in jobs]
     return [_fetch_affine(out, w) for out, w in queued]
 
@@ -380,22 +421,24 @@ class WirePlan:
     """Fixed bases resident on the device; each job streams its scalars.
 
     Construction copies the bases' x||y rows once and converts each batch
-    to Montgomery Niels planes (`to_niels_xy`), which stay on the device.
-    A job then moves only its [n, 8] scalar rows, 32 bytes a point against
-    the wire path's 96, and runs no conversion. Batches keep the wire
-    plan's (w, C, L).
+    to the scan's packed Montgomery Niels rows (`to_niels_xy_rows`), which
+    stay on the device. A job then moves only its [n, 8] scalar rows, 32
+    bytes a point against the wire path's 96, and runs no conversion and no
+    packing. Batches keep the wire plan's (w, C, L). `z_checked`: the caller
+    has checked z == 1 (the API does).
     """
 
-    def __init__(self, points_be: np.ndarray, config: MSMConfig, device: torch.device):
-        rows = _wire_rows(points_be, "a fixed-base plan")
+    def __init__(self, points_be: np.ndarray, config: MSMConfig, device: torch.device,
+                 z_checked: bool = False):
+        rows = _wire_rows(points_be, "a fixed-base plan", z_checked)
         self.config = config
         self.device = torch.device(device)
         self.n = rows.shape[0]
         self.w, self.C, self.L, self.pad_to = _padded_plan(config, self.n)
         M = self.C * self.L
-        xy_t = _host_tensor(_padded_xy(rows, self.pad_to), self.device)
-        self._niels = [
-            _plan_niels_impl(xy_t[b * M : (b + 1) * M].to(self.device, non_blocking=True))
+        xy_t = _stage_xy(rows, self.pad_to, self.device)
+        self._rows = [
+            pk.to_niels_xy_rows(xy_t[b * M : (b + 1) * M].to(self.device, non_blocking=True))
             for b in range(self.pad_to // M)
         ]
 
@@ -403,15 +446,13 @@ class WirePlan:
     def from_state(cls, niels: Sequence[torch.Tensor], *, n: int, w: int, C: int, L: int,
                    pad_to: int, config: MSMConfig, device) -> "WirePlan":
         """A plan from resident state made elsewhere: one [3, 16, C * L]
-        int32 Niels tensor per batch."""
+        int32 Niels tensor per batch, packed here once into rows."""
         self = cls.__new__(cls)
         self.config, self.device = config, torch.device(device)
         self.n, self.w, self.C, self.L, self.pad_to = n, w, C, L, pad_to
-        self._niels = [t.to(self.device) for t in niels]
-        if len(self._niels) * C * L != pad_to or any(
-            tuple(t.shape) != (3, 16, C * L) for t in self._niels
-        ):
+        if len(niels) * C * L != pad_to or any(tuple(t.shape) != (3, 16, C * L) for t in niels):
             raise ValueError("resident Niels batches do not match (C, L, pad_to)")
+        self._rows = [pippenger.pack_rows(t.to(self.device)) for t in niels]
         return self
 
     def dispatch(self, scalars_be: np.ndarray):
@@ -421,13 +462,13 @@ class WirePlan:
         if scalars_be.shape[0] != self.n:
             raise ValueError(f"plan holds {self.n} bases but got {scalars_be.shape[0]} scalars")
         M = self.C * self.L
-        sc, signed = _padded_scalars(scalars_be, self.pad_to, self.config)
-        sc_t = _host_tensor(sc, self.device)
+        signed = _signed_wire(self.config, scalars_be)
+        sc_t = _stage_scalars(scalars_be, self.pad_to, self.device)
         carry = _identity_carry(self.w, signed, self.device)
-        for b, niels in enumerate(self._niels):
+        for b, rows in enumerate(self._rows):
             dsc = sc_t[b * M : (b + 1) * M].to(self.device, non_blocking=True)
             carry = _fixed_batch_impl(
-                niels, dsc, carry, window_size=self.w, n_chunks=self.C, chunk_len=self.L,
+                rows, dsc, carry, window_size=self.w, n_chunks=self.C, chunk_len=self.L,
                 signed_digits=signed,
             )
         return _call_finish(carry, self.config.device_affine), self.w

@@ -41,6 +41,7 @@ SIGNATURES = {
     "launch_reduce_finish": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "launch_lane_scan": (_P, _P, _P, _P, _I, _I, _P),
     "launch_assemble_buckets": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "launch_to_niels_xy_rows": (_P, _P, _I, _P),
 }
 
 _lib: ctypes.CDLL | None = None

@@ -17,8 +17,9 @@
 // staged tensor), the tree reduction of grouped_running_sum and
 // reduce_finish (several threads a lane through shared memory), the lane
 // scan in one launch (lane_scan: a thread block cluster a window, in place
-// of eleven padd_masked launches) and the bucket assembly with the batch
-// carry add (assemble_buckets, in place of two padd launches).
+// of eleven padd_masked launches), the bucket assembly with the batch
+// carry add (assemble_buckets, in place of two padd launches) and the wire
+// input stage (to_niels_xy_rows: wire rows in, the scan's rows out).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -60,6 +61,59 @@ extern "C" __global__ void to_niels_xy_kernel(const int32_t* __restrict__ in,
   store_fp(out, stride, w, ym);
   store_fp(out, stride, 16 * stride + w, yp);
   store_fp(out, stride, 32 * stride + w, t);
+}
+
+// ---------------------------------------------------------------------------
+// to_niels_xy_rows. The wire input stage of every batch: _to_niels_xy_kernel
+// (padd_kernels.py, to_niels_xy) together with the unpack of the wire rows
+// before it (tpu_engine.py, _wire_niels) and the packing of the rows that the
+// scan gathers after it (pippenger.py, _accumulate_batch). In: wire x||y rows
+// [M][16], x in words 0-7 and y in words 8-15, most significant word first.
+// Out: packed Montgomery Niels rows [M][24], the LE limbs of y-x (words 0-7),
+// y+x (8-15) and 2d*x*y (16-23), as accumulate_scan_gather reads them. The
+// same 4 products in the same order as to_niels_xy_kernel, so the same
+// digits, words >= p included. One thread a point reads its 64 B row with
+// four 16-byte loads (a warp's 2 KB contiguous) and writes its 96 B row with
+// six 16-byte stores: 160 B a point, where the planes kernel moved 320 and
+// the unpack and packing passes around it moved more. Per point 4 CIOS
+// products, 1 088 multiplies: the products, not the bytes, bound it.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void store_limbs(int4* dst, const u32 a[8]) {
+  dst[0] = make_int4((int)a[0], (int)a[1], (int)a[2], (int)a[3]);
+  dst[1] = make_int4((int)a[4], (int)a[5], (int)a[6], (int)a[7]);
+}
+
+extern "C" __global__ void __launch_bounds__(kThreads)
+to_niels_xy_rows_kernel(const int4* __restrict__ in, int4* __restrict__ out, int M) {
+  const int m = blockIdx.x * blockDim.x + threadIdx.x;
+  if (m >= M) return;
+  u32 be[16];
+#pragma unroll
+  for (int q = 0; q < 4; q++) {
+    const int4 v = __ldg(in + (size_t)m * 4 + q);
+    be[4 * q] = (u32)v.x;
+    be[4 * q + 1] = (u32)v.y;
+    be[4 * q + 2] = (u32)v.z;
+    be[4 * q + 3] = (u32)v.w;
+  }
+  u32 x[8], y[8], k[8], ym[8], yp[8], t[8];
+#pragma unroll
+  for (int i = 0; i < 8; i++) {  // BE words -> LE limbs
+    x[i] = be[7 - i];
+    y[i] = be[15 - i];
+  }
+  load_const(k, R2_L);
+  mont_mul(x, x, k);  // to_mont
+  mont_mul(y, y, k);
+  fsub(ym, y, x);
+  fadd(yp, y, x);
+  mont_mul(t, x, y);  // (x*y)R
+  load_const(k, TWO_D_R_L);
+  mont_mul(t, t, k);  // 2d*x*y*R
+  int4* dst = out + (size_t)m * 6;
+  store_limbs(dst, ym);
+  store_limbs(dst + 2, yp);
+  store_limbs(dst + 4, t);
 }
 
 // ---------------------------------------------------------------------------
@@ -575,6 +629,12 @@ reduce_finish_kernel(const int32_t* __restrict__ T, const int32_t* __restrict__ 
 extern "C" int launch_to_niels_xy(const void* in, void* out, int M, void* stream) {
   to_niels_xy_kernel<<<blocks(M, kThreads), kThreads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)in, (int32_t*)out, M);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int launch_to_niels_xy_rows(const void* in, void* out, int M, void* stream) {
+  to_niels_xy_rows_kernel<<<blocks(M, kThreads), kThreads, 0, (cudaStream_t)stream>>>(
+      (const int4*)in, (int4*)out, M);
   return (int)cudaGetLastError();
 }
 

@@ -1,4 +1,4 @@
-"""Wrappers, plain versions and launch counts of the eleven point kernels.
+"""Wrappers, plain versions and launch counts of the twelve point kernels.
 
 Each wrapper takes int32 tensors holding u32 bits, at the JAX package's
 layouts (`ops/pallas/padd_kernels.py`). A tensor on the CPU goes to the
@@ -20,7 +20,7 @@ from . import field_kernels_mma
 KERNELS = (
     "to_niels_xy", "accumulate_scan", "padd_masked", "padd", "grouped_running_sum",
     "to_niels", "accumulate_scan_mma", "accumulate_scan_gather", "reduce_finish",
-    "lane_scan", "assemble_buckets",
+    "lane_scan", "assemble_buckets", "to_niels_xy_rows",
 )
 launches: dict[str, int] = {name: 0 for name in KERNELS}
 
@@ -93,6 +93,41 @@ def to_niels_xy(pts: torch.Tensor) -> torch.Tensor:
         return to_niels_xy_plain(pts)
     out = torch.empty((3, 16, M), dtype=torch.int32, device=pts.device)
     _launch("to_niels_xy", "launch_to_niels_xy", pts.data_ptr(), out.data_ptr(), M)
+    return out
+
+
+def pack_rows(niels: torch.Tensor) -> torch.Tensor:
+    """[3, 16, M] Montgomery Niels digit planes -> [M, 24] int32 rows, the
+    layout `accumulate_scan_gather` reads: y-x, y+x and 2d*t as 8 LE u32
+    words each, word j = digit 2j | digit 2j+1 << 16."""
+    p64 = limbs.as_i64(niels)
+    packed = limbs.as_i32(p64[:, 0::2] | (p64[:, 1::2] << 16))  # [3, 8, M]
+    return packed.reshape(24, -1).t().contiguous()
+
+
+# ---------------------------------------------------------------------------
+# 12. to_niels_xy_rows: the wire input stage, wire x||y rows [M, 16] (BE word
+#    order: x in words 0-7, y in words 8-15, most significant first) ->
+#    packed Montgomery Niels rows [M, 24] (`pack_rows`), in one launch.
+# ---------------------------------------------------------------------------
+def to_niels_xy_rows_plain(xy_be: torch.Tensor) -> torch.Tensor:
+    """The chain the kernel replaces: the BE unpack of the JAX package's
+    `_wire_niels`, `to_niels_xy_plain`, `pack_rows`."""
+    xy = limbs.as_i64(xy_be)
+    planes = torch.stack([limbs.from_words_le(xy[:, :8].flip(1).t()),
+                          limbs.from_words_le(xy[:, 8:].flip(1).t())])
+    return pack_rows(to_niels_xy_plain(planes.to(torch.int32)))
+
+
+def to_niels_xy_rows(xy_be: torch.Tensor) -> torch.Tensor:
+    M = xy_be.shape[0]
+    _shape("to_niels_xy_rows", xy_be, (M, 16))
+    if not _on_card("to_niels_xy_rows", xy_be):
+        return to_niels_xy_rows_plain(xy_be)
+    if xy_be.data_ptr() % 16:
+        raise ValueError("to_niels_xy_rows: rows must start on a 16-byte boundary")
+    out = torch.empty((M, 24), dtype=torch.int32, device=xy_be.device)
+    _launch("to_niels_xy_rows", "launch_to_niels_xy_rows", xy_be.data_ptr(), out.data_ptr(), M)
     return out
 
 

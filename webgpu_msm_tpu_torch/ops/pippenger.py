@@ -3,8 +3,10 @@
 The counterpart of the JAX package's `ops/pippenger.py`:
 
 1. `compute_digits`: window split, sign flag in bit 31.
-2. `accumulate_batch` / `accumulate_buckets`: one batch, or a loop over
-   batches, each added to a bucket carry. Each batch is
+2. `accumulate_batch` / `accumulate_buckets`: one batch of Niels planes,
+   or a loop over batches, each added to a bucket carry; `accumulate_rows`
+   takes a batch already packed into the scan's rows (`pack_rows`), as
+   the wire path's `to_niels_xy_rows` kernel leaves it. Each batch is
    `_accumulate_batch`: a stable sort of each window's bucket ids, the
    `accumulate_scan_gather` kernel over C lanes of L steps per window
    (it gathers the packed point rows itself and leaves each bucket's
@@ -27,6 +29,7 @@ import torch
 
 from . import limbs, windows
 from .kernels import padd_kernels as pk
+from .kernels.padd_kernels import pack_rows  # the scan's row layout, [3, 16, M] -> [M, 24]
 
 
 def n_buckets(window_size: int, signed_digits: bool) -> int:
@@ -58,6 +61,17 @@ def identity_buckets(window_size: int, signed_digits: bool, device="cpu") -> tor
 def accumulate_batch(
     points_niels: torch.Tensor,  # [3, 16, M] int32 Montgomery Niels planes
     scalar_words: torch.Tensor,  # [8, M] int64 LE u32 words
+    **kw,
+) -> torch.Tensor:
+    """One batch -> bucket sums [4, 16, K, B] int32 (Montgomery), added to
+    `carry` (carry + sums) if one is given; the keywords of
+    `accumulate_rows`."""
+    return accumulate_rows(pack_rows(points_niels), scalar_words, **kw)
+
+
+def accumulate_rows(
+    rows: torch.Tensor,  # [M, 24] int32 packed Niels rows (`pack_rows`)
+    scalar_words: torch.Tensor,  # [8, M] int64 LE u32 words
     *,
     window_size: int,
     n_chunks: int,
@@ -65,11 +79,11 @@ def accumulate_batch(
     signed_digits: bool = False,
     carry: torch.Tensor | None = None,  # [4, 16, K, B] int32
 ) -> torch.Tensor:
-    """One batch -> bucket sums [4, 16, K, B] int32 (Montgomery), added to
-    `carry` (carry + sums) if one is given."""
+    """`accumulate_batch` over points already in the scan's row layout: the
+    wire path's and the plan's batches."""
     digits = compute_digits(scalar_words, window_size, signed_digits)
     return _accumulate_batch(
-        points_niels, digits, window_size, n_chunks, chunk_len,
+        rows, digits, window_size, n_chunks, chunk_len,
         n_buckets(window_size, signed_digits), carry,
     )
 
@@ -105,7 +119,7 @@ def accumulate_buckets(
 
 
 def _accumulate_batch(
-    points: torch.Tensor,  # [3, 16, M] int32 Montgomery Niels planes
+    rows: torch.Tensor,  # [M, 24] int32 packed Niels rows
     digits: torch.Tensor,  # [K, M] int64 bucket ids, sign flag in bit 31
     w: int,
     C: int,
@@ -116,10 +130,10 @@ def _accumulate_batch(
     """One batch -> bucket sums [4, 16, K, B] int32 (Montgomery), or
     carry + sums."""
     K = windows.n_windows(w)
-    M = points.shape[-1]
+    M = rows.shape[0]
     assert M == C * L, (M, C, L)
     W = K * C
-    dev = points.device
+    dev = rows.device
 
     # ---- sort each window's ids (stable, as lax.sort); sign bit not a key --
     keys = digits & 0x7FFFFFFF
@@ -129,14 +143,10 @@ def _accumulate_batch(
     # Step-major [L, K * C]: lane (k, c) scans sorted positions c*L + j.
     lanes = lambda t: limbs.as_i32(t).reshape(K, C, L).permute(2, 0, 1).reshape(L, W).contiguous()
 
-    # Packed point rows (two 16-bit digits per u32 word, 96 B a point), which
-    # the scan gathers into run order itself.
-    p64 = limbs.as_i64(points)
-    packed = limbs.as_i32(p64[:, 0::2] | (p64[:, 1::2] << 16))  # [3, 8, M]
-    rows = packed.reshape(24, M).t().contiguous()  # [M, 24]
-
-    # partial: per bucket, the sum of its run's tail inside the lane where
-    # the run ends (the identity where it ends at a lane edge, or is empty).
+    # The scan gathers the packed point rows (96 B a point) into run order
+    # itself. partial: per bucket, the sum of its run's tail inside the lane
+    # where the run ends (the identity where it ends at a lane edge, or is
+    # empty).
     final_acc, final_id, partial = pk.accumulate_scan_gather(
         rows, lanes(perm), lanes(sorted_packed), K, B
     )
