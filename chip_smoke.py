@@ -6,13 +6,15 @@
 1. Prints the device: name, count, and nvidia-smi's name and power limit.
 2. Builds the CUDA kernels from `webgpu_msm_tpu_torch/ops/kernels/csrc`
    with nvcc and prints each kernel's ptxas registers, spills and shared
-   memory.
+   memory; builds the native CPU engine (`runtime/csrc/msm_cpu.cpp`) with
+   g++ and OpenMP at the same time (without them the run fails).
 3. Times independent `mad.lo.u32` chains (a probe kernel in this file): the
    card's 32-bit integer multiply rate, which the operations bound of every
    kernel uses. Runs each of the twelve kernels and its plain PyTorch version
    on the card on seeded inputs at the shapes of the 2^20-point paths,
    requires every output digit to be equal, and times both with CUDA
-   events (the grouped sum at the shapes of both reduction passes).
+   events (the grouped sum at the shapes of both reduction passes,
+   `padd_masked` also at every level of the naive engine's tree sum).
 4. Drives every path with the launch counts set to 0 just before and read
    just after; each path names the kernels it must and must not launch:
    - the wire `compute_msm` on the pinned 2^16 and 2^20 inputs (regenerated
@@ -30,9 +32,22 @@
      oracle's s * (sum of the points): every window is one bucket over all
      its lanes, so every level of the lane scan adds;
    - the A/B path of the tensor-core scan: the CIOS scan and the
-     tensor-core scan at the production shape, in turns, required equal.
+     tensor-core scan at the production shape, in turns, required equal;
+   - the hybrid engine on the 2^20 wire input at `cpu_work_ratio` 0.2
+     (cold and warm, and its CPU and GPU shares alone) and at 1.0 (the
+     native engine alone, no kernel), and on the 2^16 lists at 0.2 (the
+     GPU share on the planes path);
+   - `engine="cpu"` on the 2^16 lists (no kernel);
+   - `engine="naive"` at 2^16: `padd_masked` once a level of its tree sum,
+     (pad_to - 1).bit_length() launches, and no other kernel; its device
+     launches from profiles of one and two ladder steps;
+   - `engine="baseline"` at 2^16 (no kernel), with its host bucketing,
+     device ladder and host combine timed apart;
+   - routing at 2^16: `MSMPlan` on the hybrid engine or with a split keeps
+     no resident bases and gives the wire calls' results, and
+     `compute_msm_batch` with a split gives per-call `compute_msm`'s.
    Every result must be the pinned one or, where none is pinned, the wire
-   path's on the same inputs (or the oracle's). Every `compute_msm` path
+   path's on the same inputs (or the oracle's). Every GPU `compute_msm` path
    launches the gathering scan, `lane_scan` and `assemble_buckets` once a
    batch, and neither `padd_masked` nor `padd`; every wire path and plan
    build launches `to_niels_xy_rows` once a base batch and `to_niels_xy`
@@ -44,8 +59,11 @@ JAX; it needs the repository's `webgpu_msm_tpu_torch` package beside it.
 """
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
 import ctypes
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -192,6 +210,21 @@ def kernel_inputs(gen: torch.Generator, dev, M=1 << 18, K=20, C=2048, L=128, B=4
     }
 
 
+def tree_sum_levels(gen: torch.Generator, dev, W: int, padd_masked) -> list:
+    """`padd_masked`'s arguments at each level of the naive engine's tree sum
+    over W lanes (`pippenger._tree_sum_axis`): (a, a rolled by -d, lane +
+    d < W) for d = 1, 2, 4, ... < W, each level's a the sum before it."""
+    a = field_planes(gen, (4,), W).to(dev)
+    lane = torch.arange(W, device=dev)
+    levels = []
+    for i in range((W - 1).bit_length()):
+        d = 1 << i
+        b, mask = torch.roll(a, -d, dims=-1), (lane + d < W).to(torch.int32)
+        levels.append((a, b, mask))
+        a = padd_masked(a, b, mask)
+    return levels
+
+
 def mad_rate_per_s(build) -> float:
     """32-bit integer multiply-adds a second that the card issues, measured:
     independent `mad.lo.u32` chains on every SM (MAD_PROBE above)."""
@@ -321,13 +354,36 @@ def host_dispatch(api, gpu_engine, fn):
     steps = {"z check": (api, "_wire_point_rows"), "x||y into pinned": (gpu_engine, "_stage_xy"),
              "scalars into pinned": (gpu_engine, "_stage_scalars"),
              "dispatch": (gpu_engine, "_dispatch_wire")}
+    with timed_steps(steps, sync=False) as spent:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    check(all(len(v) == 1 for v in spent.values()), f"the wire call's host steps ran {spent}")
+    ms = {name: (v[0][1] - v[0][0]) * 1e3 for name, v in spent.items()}
+    ms["rest of dispatch (queueing copies and launches)"] = (
+        ms.pop("dispatch") - ms["x||y into pinned"] - ms["scalars into pinned"])
+    return out, (spent["dispatch"][0][1] - t0) * 1e3, (t1 - t0) * 1e3, ms
+
+
+@contextlib.contextmanager
+def timed_steps(steps: dict, sync: bool):
+    """Wrap each (module, attribute) function of `steps` while the block
+    runs; yields {step: [(start, end) host clock of each call]}. With
+    `sync` the device is synchronized before and after each call, so that a
+    device step's time is its own."""
     spent = {name: [] for name in steps}
     originals = {name: getattr(mod, attr) for name, (mod, attr) in steps.items()}
 
     def timed(name):
-        def call(*args):
+        def call(*args, **kwargs):
+            if sync:
+                torch.cuda.synchronize()
             t = time.perf_counter()
-            out = originals[name](*args)
+            out = originals[name](*args, **kwargs)
+            if sync:
+                torch.cuda.synchronize()
             spent[name].append((t, time.perf_counter()))
             return out
         return call
@@ -335,19 +391,39 @@ def host_dispatch(api, gpu_engine, fn):
     for name, (mod, attr) in steps.items():
         setattr(mod, attr, timed(name))
     try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
+        yield spent
     finally:
         for name, (mod, attr) in steps.items():
             setattr(mod, attr, originals[name])
-    check(all(len(v) == 1 for v in spent.values()), f"the wire call's host steps ran {spent}")
-    ms = {name: (v[0][1] - v[0][0]) * 1e3 for name, v in spent.items()}
-    ms["rest of dispatch (queueing copies and launches)"] = (
-        ms.pop("dispatch") - ms["x||y into pinned"] - ms["scalars into pinned"])
-    return out, (spent["dispatch"][0][1] - t0) * 1e3, (t1 - t0) * 1e3, ms
+
+
+def device_launches(fn) -> int:
+    """Device kernels and copies the profiler records while fn runs."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+
+
+def naive_device_launches(naive_engine, gpu_engine, points, scalars, pad_to, dev) -> int:
+    """The naive engine's device launches at its ladder's full length, from
+    profiles of its device stage with one and with two ladder steps (every
+    step launches the same kernels, whatever the scalars): a profile of
+    the whole 256 steps would record millions of events."""
+    pts = gpu_engine._host_tensor(gpu_engine.marshal_points(points, pad_to), dev).to(dev)
+    sc = gpu_engine._host_tensor(gpu_engine.marshal_scalars(scalars, pad_to), dev).to(dev)
+    full = naive_engine.SCALAR_BITS
+    counts = {}
+    try:
+        for steps in (1, 2):
+            naive_engine.SCALAR_BITS = steps
+            counts[steps] = device_launches(lambda: naive_engine._device_naive(pts, sc))
+    finally:
+        naive_engine.SCALAR_BITS = full
+    return counts[1] + (full - 1) * (counts[2] - counts[1])
 
 
 def drive(label: str, pk, fn, must: tuple, must_not: tuple, batches: int = 0,
@@ -380,8 +456,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     from webgpu_msm_tpu_torch import MSMConfig, MSMPlan, api, compute_msm, compute_msm_batch
-    from webgpu_msm_tpu_torch.engines import gpu_engine
+    from webgpu_msm_tpu_torch.engines import baseline_engine, cpu_engine, gpu_engine, naive_engine
     from webgpu_msm_tpu_torch.ops.kernels import build
+    from webgpu_msm_tpu_torch.runtime import build as native_build
     from webgpu_msm_tpu_torch.ops.kernels import padd_kernels as pk
     from webgpu_msm_tpu_torch.oracle import curve as ocurve
     from webgpu_msm_tpu_torch.oracle.pinned_vectors import PINNED
@@ -397,10 +474,14 @@ def main() -> int:
     print(f"device: {name} x{count}; torch {torch.__version__} cuda {torch.version.cuda}")
     print(smi)
 
-    # 2. build
+    # 2. build: the CUDA kernels with nvcc and, at the same time, the native
+    # CPU engine with g++ (a missing g++ or OpenMP fails here)
     t0 = time.perf_counter()
-    build.load()
-    print(f"build: {build.library_path().name} in {time.perf_counter() - t0:.1f} s")
+    with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
+        native = pool.submit(lambda: (native_build.load(), time.perf_counter() - t0)[1])
+        build.load()
+        print(f"build: {build.library_path().name} in {time.perf_counter() - t0:.1f} s")
+        print(f"build: {native_build.library_path().name} (g++, OpenMP) in {native.result():.1f} s")
     for kname, line in sorted(build.ptxas_report().items()):
         print(f"ptxas {kname}: {line}")
 
@@ -476,6 +557,21 @@ def main() -> int:
             print(f"kernel {kname}: equal to plain on {tuple(a2[0].shape)} (a shape no path "
                   f"launches); {rows[kname]['pass2_shape_ms']:.4f} ms (bound {b2:.4f} ms by {by2}) "
                   f"[{smi}]")
+        if kname == "padd_masked":
+            # The naive engine's tree sum, the path that launches it: W =
+            # pad_to of 2^16 points, b = a rolled by -d, mask lane + d < W,
+            # every level in turn, each level's output the next one's input.
+            levels = tree_sum_levels(gen, dev, 1 << 16, plain)
+            for a, b, mask in levels:
+                check(max_abs_err(kern(a, b, mask), plain(a, b, mask)) == 0,
+                      f"{kname} differs at the tree sum's width (mask lane + {int((mask == 0).sum())} < W)")
+            chain_ms = cuda_ms(lambda: [kern(*lv) for lv in levels], reps) / len(levels)
+            chain_bound = sum(bound(kname, lv, ops_per_s)[0] for lv in levels) / len(levels)
+            rows[kname].update(naive_shape_ms=chain_ms, naive_shape_bound_ms=chain_bound)
+            print(f"kernel {kname}: equal to plain at the tree sum's {len(levels)} levels on "
+                  f"{tuple(levels[0][0].shape)}; {chain_ms:.4f} ms a level (bound {chain_bound:.4f} ms "
+                  f"a level) [{smi}]")
+            del levels
         torch.cuda.empty_cache()
     scan_args = inputs["accumulate_scan"]
     del inputs
@@ -627,6 +723,124 @@ def main() -> int:
           f"(runs {times[False]} / {times[True]}); launches {counts}; "
           f"no compute_msm path launches either [{smi}]")
     del scan_args
+
+    # 4h. the hybrid engine on the 2^20 wire input at cpu_work_ratio 0.2: the
+    # native engine on the first int(0.2 n) rows in a worker thread while the
+    # card computes the rest; the GPU share pads to the same four batches as
+    # the whole input (the JAX rule, kept), the last one mostly identity rows
+    hyb = MSMConfig(cpu_work_ratio=0.2)
+    n_cpu = int(N * hyb.cpu_work_ratio)
+    hybrid = lambda: compute_msm(pts, sc, config=hyb, device=dev)
+    res, cold_ms, counts = drive("hybrid 0.2 wire 2^20", pk, hybrid, WIRE_KERNELS, others(*WIRE_KERNELS),
+                                 n_batches(N - n_cpu), n_batches(N - n_cpu))
+    check(as_xy(res) == PINNED[20], "hybrid 0.2 wire 2^20: result differs from PINNED")
+    res, warm_ms = once_ms(hybrid)
+    check(as_xy(res) == PINNED[20], "hybrid 0.2 wire 2^20 warm call differs from PINNED")
+    w_native = hyb.resolved_window_size_native(N)
+    threads = cpu_engine.resolved_threads(hyb, co_compute=True)
+    cpu_part, cpu_ms = once_ms(lambda: cpu_engine.msm_wire(pts[:n_cpu], sc[:n_cpu], w_native, threads))
+    gpu_part, gpu_ms = once_ms(lambda: gpu_engine.msm_affine_wire(pts[n_cpu:], sc[n_cpu:], hyb, dev))
+    check(cpu_engine.add_affine(cpu_part, gpu_part) == PINNED[20], "hybrid shares: join differs from PINNED")
+    w, C, L, pad_to = gpu_engine._padded_plan(hyb, N - n_cpu)
+    print(f"hybrid 0.2 wire 2^20: equals PINNED[20]; launches {counts}")
+    print(f"hybrid 0.2 wire 2^20: host os.cpu_count() {os.cpu_count()}, sched_getaffinity "
+          f"{len(os.sched_getaffinity(0))}; CPU share {n_cpu} rows (w {w_native}, {threads} threads), "
+          f"GPU share {N - n_cpu} rows padded to {pad_to} (w {w}, {pad_to // (C * L)} batches of {C * L}, "
+          f"the last {1 - ((N - n_cpu) % (C * L)) / (C * L):.3f} identity rows)")
+    print(f"hybrid 0.2 wire 2^20 wall: cold {cold_ms / 1e3:.3f} s, warm {warm_ms / 1e3:.3f} s; "
+          f"CPU share alone {cpu_ms / 1e3:.3f} s, GPU share alone {gpu_ms / 1e3:.3f} s "
+          f"[{smi}; host {os.cpu_count()} CPUs]")
+
+    # 4i. the hybrid at cpu_work_ratio 1.0: the native engine alone, no kernel
+    cpu_only = lambda: compute_msm(pts, sc, config=MSMConfig(cpu_work_ratio=1.0), device=dev, engine="hybrid")
+    res, ms, counts = drive("hybrid 1.0 wire 2^20", pk, cpu_only, (), pk.KERNELS)
+    check(as_xy(res) == PINNED[20], "hybrid 1.0 wire 2^20: result differs from PINNED")
+    print(f"hybrid 1.0 (CPU only) wire 2^20: equals PINNED[20], no kernel launched; wall {ms / 1e3:.3f} s "
+          f"(w {hyb.resolved_window_size_native(N)}, {cpu_engine.resolved_threads(hyb, False)} threads) "
+          f"[host {os.cpu_count()} CPUs]")
+
+    # 4j. the hybrid on lists at 2^16: the GPU share takes the planes path
+    points16, scalars16, pw16, sw16 = inputs[16]
+    n16 = len(points16)
+    n_gpu16 = n16 - int(n16 * hyb.cpu_work_ratio)
+    list_kernels = ("to_niels",) + WIRE_KERNELS[1:]
+    res, ms, counts = drive("hybrid 0.2 lists 2^16", pk,
+                            lambda: compute_msm(points16, scalars16, config=hyb, device=dev, engine="hybrid"),
+                            list_kernels, others(*list_kernels), n_batches(n_gpu16))
+    check(as_xy(res) == PINNED[16], "hybrid 0.2 lists 2^16: result differs from PINNED")
+    check(counts["to_niels"] == n_batches(n_gpu16), f"hybrid lists: to_niels launched {counts['to_niels']} times")
+    print(f"hybrid 0.2 lists 2^16: equals PINNED[16]; {ms / 1e3:.3f} s; launches {counts} "
+          f"[{smi}; host {os.cpu_count()} CPUs]")
+
+    # 4k. the native CPU engine on lists at 2^16: no device, no kernel
+    res, ms, counts = drive("cpu engine 2^16", pk, lambda: compute_msm(points16, scalars16, engine="cpu"),
+                            (), pk.KERNELS)
+    check(as_xy(res) == PINNED[16], "cpu engine 2^16: result differs from PINNED")
+    print(f"engine cpu 2^16 (lists): equals PINNED[16], no kernel launched; {ms / 1e3:.3f} s "
+          f"(w {cfg.resolved_window_size_native(n16)}, {cpu_engine.resolved_threads(cfg, False)} threads) "
+          f"[host {os.cpu_count()} CPUs]")
+
+    # 4l. the naive engine at 2^16: a 256-step ladder in plain PyTorch on the
+    # card, then the tree sum, one padd_masked launch a level
+    pad16 = max(-(-n16 // 128) * 128, 128)
+    levels16 = (pad16 - 1).bit_length()
+    res, naive_ms, counts = drive("naive 2^16", pk,
+                                  lambda: compute_msm(points16, scalars16, device=dev, engine="naive"),
+                                  ("padd_masked",), others("padd_masked"))
+    check(as_xy(res) == PINNED[16], "naive 2^16: result differs from PINNED")
+    check(counts["padd_masked"] == levels16,
+          f"naive 2^16: padd_masked launched {counts['padd_masked']} times, not {levels16}")
+    rows["padd_masked"]["launches"] = counts["padd_masked"]
+    naive_launches = naive_device_launches(naive_engine, gpu_engine, points16, scalars16, pad16, dev)
+    print(f"naive 2^16: equals PINNED[16]; padd_masked {counts['padd_masked']} launches "
+          f"((pad_to - 1).bit_length() for pad_to {pad16}), no other kernel; wall {naive_ms / 1e3:.3f} s, "
+          f"{naive_launches} device launches (profiler counts of one and two ladder steps, extrapolated "
+          f"to {naive_engine.SCALAR_BITS}) [{smi}]")
+
+    # 4m. the baseline at 2^16: host bucketing, the 16-bit ladder on the card
+    # (plain PyTorch), host window sums and combine, each step timed apart
+    steps = {"host bucketing": (baseline_engine, "_host_bucket_entries"),
+             "host marshalling of the entries": (gpu_engine, "marshal_points"),
+             "device ladder (synchronized)": (baseline_engine, "_device_mul_16bit"),
+             "host unmarshalling of the products": (gpu_engine, "window_sums_to_points"),
+             "host window sums and combine": (baseline_engine, "_combine")}
+    with timed_steps(steps, sync=True) as spent:
+        res, ms, counts = drive("baseline 2^16", pk,
+                                lambda: compute_msm(points16, scalars16, device=dev, engine="baseline"),
+                                (), pk.KERNELS)
+    check(as_xy(res) == PINNED[16], "baseline 2^16: result differs from PINNED")
+    print(f"baseline 2^16: equals PINNED[16], no kernel launched; wall {ms / 1e3:.3f} s; "
+          f"{len(spent['device ladder (synchronized)'])} ladder chunks; by step: "
+          + ", ".join(f"{k} {sum(t1 - t0 for t0, t1 in v):.3f} s" for k, v in spent.items())
+          + f" [{smi}; host {os.cpu_count()} CPUs]")
+
+    # 4n. routing at 2^16: a plan on another engine or with a split keeps no
+    # resident bases and gives per-call results; so does compute_msm_batch
+    want16 = [PINNED[16], as_xy(compute_msm(pw16, sw2, config=cfg, device=dev))]
+    built = []
+    real_plan = gpu_engine.WirePlan
+    gpu_engine.WirePlan = lambda *a, **k: built.append(1) or real_plan(*a, **k)
+    try:
+        for label, plan_cfg, engine in (("MSMPlan engine hybrid", cfg, "hybrid"),
+                                        ("MSMPlan cpu_work_ratio 0.2", hyb, None)):
+            plan = MSMPlan(pw16, config=plan_cfg, device=dev, engine=engine)
+            n_dev = n_gpu16 if plan_cfg.cpu_work_ratio else n16  # rows on the card a job
+            got, ms, counts = drive(f"{label} 2^16", pk, lambda: plan.msm_batch([sw16, sw2]), WIRE_KERNELS,
+                                    others(*WIRE_KERNELS), 2 * n_batches(n_dev), 2 * n_batches(n_dev))
+            check(plan._plan is None and not built, f"{label}: a WirePlan was built")
+            check([as_xy(r) for r in got] == want16, f"{label}: results differ from the wire calls'")
+            print(f"routing: {label} 2^16 keeps no resident bases, 2 jobs equal PINNED[16] / the wire "
+                  f"call in {ms / 1e3:.3f} s; launches {counts}")
+        batch = lambda: compute_msm_batch([pw16, pw16], [sw16, sw2], config=hyb, device=dev)
+        got, ms, counts = drive("compute_msm_batch ratio 0.2 2^16", pk, batch, WIRE_KERNELS,
+                                others(*WIRE_KERNELS), 2 * n_batches(n_gpu16), 2 * n_batches(n_gpu16))
+        per_call = [compute_msm(pw16, s, config=hyb, device=dev) for s in (sw16, sw2)]
+        check(got == per_call and [as_xy(r) for r in got] == want16 and not built,
+              "compute_msm_batch ratio 0.2: results differ from per-call compute_msm")
+        print(f"routing: compute_msm_batch 2^16 at cpu_work_ratio 0.2 runs per call, equal to per-call "
+              f"compute_msm and PINNED[16] / the wire call, in {ms / 1e3:.3f} s; launches {counts}")
+    finally:
+        gpu_engine.WirePlan = real_plan
 
     # 5. summary lines
     print("kernels: " + ", ".join(pk.KERNELS))

@@ -1,6 +1,6 @@
 """The port on the card: each CUDA kernel against its plain version, and
-`compute_msm` (wire rows and lists) and `MSMPlan` against the port's own
-oracle.
+`compute_msm` (wire rows and lists, and the hybrid, naive and baseline
+engines) and `MSMPlan` against the port's own oracle.
 
 Every test here is marked `gpu` and skips without a CUDA device. The file
 imports no JAX, because the GPU machine has none; run it there with
@@ -268,3 +268,52 @@ def test_queued_wire_jobs_do_not_share_staging_buffers(cuda):
     got = compute_msm_batch([p for p, _ in jobs], [s for _, s in jobs], config=cfg, device=cuda)
     assert got == singles
     assert pk.launches["to_niels_xy_rows"] == 3 * 4 and pk.launches["to_niels_xy"] == 0
+
+
+def test_hybrid_wire_split_on_card_matches_oracle(cuda):
+    """2^12 points at cpu_work_ratio 0.2: 819 in the native engine beside
+    3 277 on the card's wire path (one batch of 2^12: w 12, C 256, L 16),
+    joined by one affine add."""
+    n = 1 << 12
+    pts = fixtures.distinct_points_fast(n, seed=63)
+    scalars = fixtures.random_scalars(n, seed=64)
+    pk.reset_launch_counts()
+    got = compute_msm(fixtures.wire_points(pts), convert.bigints_to_u32_be(scalars),
+                      config=MSMConfig(cpu_work_ratio=0.2), device=cuda)
+    assert (got.x, got.y) == curve.to_affine(msm.msm(pts, scalars, 12))
+    used = ("to_niels_xy_rows", "accumulate_scan_gather", "lane_scan", "assemble_buckets",
+            "grouped_running_sum", "reduce_finish")
+    assert pk.launches == {name: int(name in used) for name in pk.KERNELS}
+
+
+def test_naive_and_baseline_on_card_match_oracle(cuda):
+    """The naive engine at n = 1024: its ladder is plain PyTorch on the
+    card, its tree sum (1024 - 1).bit_length() = 10 `padd_masked` launches,
+    and no other kernel. The baseline launches no kernel."""
+    n = 1024
+    pts = fixtures.distinct_points_fast(n, seed=65)
+    scalars = fixtures.random_scalars(n, seed=66)
+    want = curve.to_affine(msm.msm(pts, scalars, 8))
+    pk.reset_launch_counts()
+    got = compute_msm(pts, scalars, device=cuda, engine="naive")
+    assert (got.x, got.y) == want
+    assert pk.launches == {name: 10 if name == "padd_masked" else 0 for name in pk.KERNELS}
+    pk.reset_launch_counts()
+    got = compute_msm(pts[:64], scalars[:64], device=cuda, engine="baseline")
+    assert (got.x, got.y) == curve.to_affine(msm.msm(pts[:64], scalars[:64], 8))
+    assert not any(pk.launches.values())
+
+
+@pytest.mark.parametrize("G", [5, 1024, 1 << 16])
+def test_padd_masked_at_tree_sum_widths_on_card(cuda, G):
+    """`padd_masked` at the naive tree sum's shapes, level by level: W = G
+    lanes, b = a rolled by -d, mask lane + d < G."""
+    a = planes_from_numpy(rand_planes(np.random.default_rng(G), (4,), G), cuda)
+    lane = torch.arange(G, device=cuda)
+    for i in range((G - 1).bit_length()):
+        d = 1 << i
+        b = torch.roll(a, -d, dims=-1)
+        mask = (lane + d < G).to(torch.int32)
+        got = pk.padd_masked(a, b, mask)
+        assert torch.equal(got, pk.padd_masked_plain(a, b, mask))
+        a = got

@@ -96,9 +96,14 @@ def test_input_checks(case):
         tm.compute_msm(pw[:1], np.array([[0] * 7 + [3]], dtype=np.uint32), config=CFG, device="cpu")
     with pytest.raises(KeyError):
         tm.compute_msm({"x": pw[:, :8]}, sw, device="cpu")
-    for engine in ("oracle", "cpu", "naive", "baseline", "hybrid", "tpu"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tm.compute_msm(pw, sw, device="cpu", engine=engine)
+    _, _, _, _, want = case
+    split = MSMConfig(window_size=8, cpu_work_ratio=0.25, n_chunks=4, chunk_len=8)
+    for engine, cfg in (("oracle", CFG), ("cpu", CFG), ("naive", CFG), ("baseline", CFG),
+                        ("hybrid", split)):
+        got = tm.compute_msm(pw, sw, config=cfg, device="cpu", engine=engine)
+        assert (got.x, got.y) == want, engine
+    with pytest.raises(ValueError, match="unknown engine 'tpu'"):
+        tm.compute_msm(pw, sw, device="cpu", engine="tpu")
 
 
 def test_no_gpu_and_no_device_raises(case, monkeypatch):
@@ -166,6 +171,8 @@ def test_port_imports_no_jax():
         "import webgpu_msm_tpu_torch.utils.interop, webgpu_msm_tpu_torch.utils.fixtures\n"
         "import webgpu_msm_tpu_torch.ops.kernels.field_kernels_mma, webgpu_msm_tpu_torch.ops.kernels.padd_kernels\n"
         "import webgpu_msm_tpu_torch.api, webgpu_msm_tpu_torch.ops.pippenger\n"
+        "import webgpu_msm_tpu_torch.engines.hybrid_engine, webgpu_msm_tpu_torch.engines.naive_engine\n"
+        "import webgpu_msm_tpu_torch.engines.baseline_engine, webgpu_msm_tpu_torch.runtime.build\n"
         "assert {'MSMPlan', 'compute_msm_batch'} <= set(dir(webgpu_msm_tpu_torch))\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'webgpu_msm_tpu.'))"
         " or m == 'webgpu_msm_tpu']\n"

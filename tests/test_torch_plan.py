@@ -118,7 +118,7 @@ def test_bases_are_converted_once(case, monkeypatch):
 
 
 def test_plan_input_checks(case, monkeypatch):
-    _, _, pw, sws, _ = case
+    _, _, pw, sws, want = case
     plan = gpu_engine.WirePlan(pw, CFG, "cpu")
     with pytest.raises(ValueError, match="13 bases"):
         plan.dispatch(sws[0][:-1])
@@ -126,11 +126,17 @@ def test_plan_input_checks(case, monkeypatch):
     bad[2, 31] = 2
     with pytest.raises(ValueError, match="z == 1"):
         gpu_engine.WirePlan(bad, CFG, "cpu")
-    for engine in ("oracle", "cpu", "naive", "baseline", "hybrid", "tpu"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tm.MSMPlan(pw, config=CFG, device="cpu", engine=engine)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tm.compute_msm_batch([pw], [sws[0]], config=CFG, device="cpu", engine=engine)
+    split = MSMConfig(window_size=8, cpu_work_ratio=0.25, n_chunks=4, chunk_len=4)
+    for engine, cfg in (("oracle", CFG), ("cpu", CFG), ("naive", CFG), ("baseline", CFG),
+                        ("hybrid", split)):
+        got = tm.MSMPlan(pw, config=cfg, device="cpu", engine=engine).msm(sws[0])
+        assert (got.x, got.y) == want[0], engine
+        [got] = tm.compute_msm_batch([pw], [sws[1]], config=cfg, device="cpu", engine=engine)
+        assert (got.x, got.y) == want[1], engine
+    with pytest.raises(ValueError, match="unknown engine 'tpu'"):
+        tm.MSMPlan(pw, config=CFG, device="cpu", engine="tpu")
+    with pytest.raises(ValueError, match="unknown engine 'tpu'"):
+        tm.compute_msm_batch([pw], [sws[0]], config=CFG, device="cpu", engine="tpu")
     with pytest.raises(ValueError, match="length mismatch"):
         tm.compute_msm_batch([pw, pw], [sws[0]], config=CFG, device="cpu")
     assert tm.compute_msm_batch([], [], device="cpu") == []

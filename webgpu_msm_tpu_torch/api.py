@@ -8,13 +8,20 @@ Accepted inputs:
 - scalars: a numpy [n, 8] big-endian u32 array, or a list of ints or of
   [8] big-endian u32 arrays.
 
-Routing follows the JAX `compute_msm`: two numpy arrays that meet the wire
-path's preconditions (whole rows, z == 1) take the wire path of
-`engines/gpu_engine.py`; everything else is normalized to `ExtPoint`s and
-ints and takes the planes path. The computation runs on `device`: the GPU
-when none is given (an error without one), the plain PyTorch path only
-for device="cpu". Only the GPU engine is ported; the other engines of the
-JAX package raise `NotImplementedError`.
+Engines (`engine=`), routed as the JAX `compute_msm` routes its own:
+- "gpu" (the default): `engines/gpu_engine.py`; with `cpu_work_ratio` > 0
+  it goes to the hybrid, as the JAX "tpu" engine does;
+- "hybrid": the native CPU engine and the GPU engine on one MSM at once;
+- "naive": a double-and-add ladder for every point and a tree sum;
+- "baseline": the Demox-Labs baseline row (host bucketing, device ladders);
+- "oracle": the pure-Python serial Pippenger;
+- "cpu": the native C++ engine.
+
+Two numpy arrays that meet the wire path's preconditions (whole rows,
+z == 1) take the wire path of the "gpu" and "hybrid" engines; everything
+else is normalized to `ExtPoint`s and ints. "oracle" and "cpu" compute on
+the host and resolve no device. The others run on `device`: the GPU when
+none is given (an error without one), plain PyTorch only for device="cpu".
 """
 from __future__ import annotations
 
@@ -22,10 +29,12 @@ from dataclasses import dataclass
 from typing import Any, Optional, Sequence
 
 import numpy as np
+import torch
 
 from .config import MSMConfig
-from .engines import gpu_engine
+from .engines import baseline_engine, cpu_engine, gpu_engine, hybrid_engine, naive_engine
 from .oracle import curve
+from .oracle import msm as omsm
 from .oracle.curve import ExtPoint
 from .utils import convert
 
@@ -36,12 +45,23 @@ class AffinePoint:
     y: int
 
 
-def _check_engine(engine: Optional[str]) -> None:
-    if engine not in (None, "gpu"):
-        raise NotImplementedError(
-            f"engine {engine!r} is not ported yet (ROADMAP.md: modules still to port, "
-            "the other engines)"
-        )
+ENGINES = ("gpu", "hybrid", "naive", "baseline", "oracle", "cpu")
+HOST_ENGINES = ("oracle", "cpu")  # compute on the host; resolve no device
+
+
+def _resolve(engine: Optional[str], device) -> tuple[str, Optional[torch.device]]:
+    """(engine name, device): None means "gpu"; a host engine gets no
+    device."""
+    engine = "gpu" if engine is None else engine
+    if engine not in ENGINES:
+        raise ValueError(f"unknown engine {engine!r}; the port's engines: {ENGINES}")
+    return engine, None if engine in HOST_ENGINES else gpu_engine.resolve_device(device)
+
+
+def _gpu_only(engine: str, config: MSMConfig) -> bool:
+    """The GPU engine with no CPU share: the only route with queued batch
+    dispatch and resident plans (the JAX "tpu" engine's)."""
+    return engine == "gpu" and config.cpu_work_ratio == 0
 
 
 def _wire_point_rows(points: np.ndarray) -> Optional[np.ndarray]:
@@ -115,16 +135,18 @@ def compute_msm(
     """Compute sum_i scalars[i] * points[i]; returns the affine result.
 
     device: a torch device ("cuda", "cuda:0", "cpu"); None means the GPU.
-    engine: None or "gpu"; the JAX package's other engines are not ported.
+    engine: one of `ENGINES`; None means "gpu".
     """
-    _check_engine(engine)
     config = config or MSMConfig()
-    dev = gpu_engine.resolve_device(device)
+    engine, dev = _resolve(engine, device)
 
     wire = (_wire_inputs(points, scalars)
-            if isinstance(points, np.ndarray) and isinstance(scalars, np.ndarray) else None)
-    if wire is not None:
-        return AffinePoint(*gpu_engine.msm_affine_wire(*wire, config, dev, True))  # z checked
+            if engine in ("gpu", "hybrid") and isinstance(points, np.ndarray)
+            and isinstance(scalars, np.ndarray) else None)
+    if wire is not None:  # z checked
+        if _gpu_only(engine, config):
+            return AffinePoint(*gpu_engine.msm_affine_wire(*wire, config, dev, True))
+        return AffinePoint(*hybrid_engine.msm_affine_wire(*wire, config, dev, True))
 
     pts = _normalize_points(points)
     sc = _normalize_scalars(scalars)
@@ -132,7 +154,19 @@ def compute_msm(
         raise ValueError(f"points/scalars length mismatch: {len(pts)} vs {len(sc)}")
     if not pts:
         return AffinePoint(0, 1)
-    return AffinePoint(*gpu_engine.msm_affine(pts, sc, config, dev))
+
+    if engine == "oracle":
+        result = omsm.msm(pts, sc, window_size=config.resolved_window_size(len(pts)))
+        return AffinePoint(*curve.to_affine(result))
+    if engine == "cpu":
+        return AffinePoint(*cpu_engine.msm_affine(pts, sc, config))
+    if engine == "naive":
+        return AffinePoint(*naive_engine.msm_affine(pts, sc, config, dev))
+    if engine == "baseline":
+        return AffinePoint(*baseline_engine.msm_affine(pts, sc, config, dev))
+    if _gpu_only(engine, config):
+        return AffinePoint(*gpu_engine.msm_affine(pts, sc, config, dev))
+    return AffinePoint(*hybrid_engine.msm_affine(pts, sc, config, dev))
 
 
 def compute_msm_batch(
@@ -151,15 +185,21 @@ def compute_msm_batch(
     besides, every job passes the same point array object, the bases are
     copied and converted once (a `WirePlan`) and each job streams only its
     scalars. Otherwise each job is normalized and takes the planes path.
+
+    The queued dispatch is the GPU engine's: any other engine, or a
+    co-compute split (`cpu_work_ratio` > 0), runs job by job through
+    `compute_msm`, routed as it routes them.
     """
-    _check_engine(engine)
     config = config or MSMConfig()
     if len(points_list) != len(scalars_list):
         raise ValueError(
             f"points_list/scalars_list length mismatch: "
             f"{len(points_list)} vs {len(scalars_list)}"
         )
-    dev = gpu_engine.resolve_device(device)
+    engine, dev = _resolve(engine, device)
+    if not _gpu_only(engine, config):
+        return [compute_msm(p, s, config=config, device=dev, engine=engine)
+                for p, s in zip(points_list, scalars_list)]
 
     wire = _wire_jobs(points_list, scalars_list)
     if wire:
@@ -214,8 +254,10 @@ class MSMPlan:
         results = plan.msm_batch(scalar_jobs)  # scalars only
 
     Points take the same forms as `compute_msm`; wire rows with z == 1 skip
-    all per-point conversion on the host. Only the GPU engine is ported:
-    another engine raises `NotImplementedError`.
+    all per-point conversion on the host. The resident bases are the GPU
+    engine's: with any other engine, or with `cpu_work_ratio` > 0, the plan
+    keeps the points and runs each job through `compute_msm`, as the JAX
+    `MSMPlan` does.
     """
 
     def __init__(
@@ -225,14 +267,20 @@ class MSMPlan:
         device=None,
         engine: Optional[str] = None,
     ):
-        _check_engine(engine)
         self.config = config or MSMConfig()
-        dev = gpu_engine.resolve_device(device)
+        self.engine, self.device = _resolve(engine, device)
+        self._plan = None
+        self._points = None
+        if not _gpu_only(self.engine, self.config):
+            self._points = points
+            self.n = (points.reshape(-1, 32).shape[0] if isinstance(points, np.ndarray)
+                      else len(points))
+            return
         rows = _wire_point_rows(points) if isinstance(points, np.ndarray) else None
         if rows is None:
             # one marshal on the host to wire rows (z == 1), then the same plan
             rows = _points_to_wire_rows(_normalize_points(points))
-        self._plan = gpu_engine.WirePlan(rows, self.config, dev, True)  # z checked
+        self._plan = gpu_engine.WirePlan(rows, self.config, self.device, True)  # z checked
         self.n = self._plan.n
 
     @staticmethod
@@ -241,12 +289,20 @@ class MSMPlan:
             return convert.as_u32_array(scalars, "wire scalars").reshape(-1, 8)
         return convert.bigints_to_u32_be([int(s) for s in scalars])
 
+    def _per_call(self, scalars: Any) -> AffinePoint:
+        return compute_msm(self._points, scalars, config=self.config, device=self.device,
+                           engine=self.engine)
+
     def msm(self, scalars: Any) -> AffinePoint:
         """One MSM against the planned bases."""
+        if self._plan is None:
+            return self._per_call(scalars)
         return AffinePoint(*self._plan.msm_affine(self._scalars_wire(scalars)))
 
     def msm_batch(self, scalars_list: Sequence[Any]) -> list[AffinePoint]:
         """Several jobs: all queued (scalar copies overlap the compute)
         before any result is fetched."""
+        if self._plan is None:
+            return [self._per_call(s) for s in scalars_list]
         wire = [self._scalars_wire(s) for s in scalars_list]
         return [AffinePoint(x, y) for x, y in self._plan.msm_affine_batch(wire)]

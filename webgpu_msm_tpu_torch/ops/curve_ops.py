@@ -55,6 +55,20 @@ def add(p1: PointVec, p2: PointVec) -> PointVec:
     return PointVec(mont_mul(e, f), mont_mul(g, h), mont_mul(e, h), mont_mul(f, g))
 
 
+def add_mixed(p1: PointVec, p2_x, p2_y, p2_t) -> PointVec:
+    """p1 + p2 with p2.z == 1 (Montgomery R): the unified add without the
+    Z1*Z2 product."""
+    a = mont_mul(field_sub(p1.y, p1.x), field_sub(p2_y, p2_x))
+    b = mont_mul(field_add(p1.y, p1.x), field_add(p2_y, p2_x))
+    c = mul_plain_const(mont_mul(p1.t, p2_t), 2 * EDWARDS_D)
+    d = field_add(p1.z, p1.z)  # 2 * Z1 * 1
+    e = field_sub(b, a)
+    f = field_sub(d, c)
+    g = field_add(d, c)
+    h = field_add(b, a)
+    return PointVec(mont_mul(e, f), mont_mul(g, h), mont_mul(e, h), mont_mul(f, g))
+
+
 def add_niels(p1: PointVec, ym2, yp2, td2, mul=mont_mul) -> PointVec:
     """p1 + p2 with p2 in Niels form (y-x, y+x, 2d*t; z == 1): 7 multiplies,
     each through `mul`, a Montgomery product with `mont_mul`'s contract."""

@@ -17,6 +17,8 @@ The counterpart of the JAX package's `ops/pippenger.py`:
    over the buckets of each group), then `reduce_finish` over the groups,
    which also doubles log2(Gs) times, adds and leaves the Montgomery
    domain. `reduce_buckets` is its Montgomery-domain output.
+4. `_tree_sum_axis`: a log-depth group sum over a trailing axis, one
+   `padd_masked` launch a level (the naive engine's sum of its products).
 
 Point planes travel as int32 tensors of u32 bits; ids, digits and
 positions are int64. Every point kernel goes through `ops/kernels`, which
@@ -198,3 +200,26 @@ def reduce_and_finish(bucket_sums: torch.Tensor) -> tuple[torch.Tensor, torch.Te
 def reduce_buckets(bucket_sums: torch.Tensor) -> torch.Tensor:
     """Window sums [4, 16, K] int64 in the Montgomery domain."""
     return limbs.as_i64(reduce_and_finish(bucket_sums)[1])
+
+
+def _tree_sum_axis(st: torch.Tensor) -> torch.Tensor:
+    """Group sum over the trailing axis in log depth: [4, 16, K, G] int64
+    Montgomery points -> [4, 16, K] int64, for any G.
+
+    The JAX package's roll loop: at level d = 1, 2, 4, ... < G, lane g
+    becomes cur[g] + cur[g + d] where g + d < G (`padd_masked`, its own
+    value first), so lane 0 ends with the sum; the same adds in the same
+    order give the JAX digits. One `padd_masked` launch a level on the card.
+    """
+    G = st.shape[-1]
+    if G == 1:
+        return st[..., 0]
+    shape = st.shape
+    lane = torch.arange(G, device=st.device).expand(shape[-2], G)
+    cur = limbs.as_i32(st).reshape(4, 16, -1)
+    for i in range((G - 1).bit_length()):
+        d = 1 << i
+        shifted = torch.roll(cur.reshape(shape), -d, dims=-1).reshape(cur.shape)
+        mask = (lane + d < G).to(torch.int32).reshape(-1)
+        cur = pk.padd_masked(cur, shifted, mask)
+    return limbs.as_i64(cur).reshape(shape)[..., 0]
