@@ -15,6 +15,12 @@
    requires every output digit to be equal, and times both with CUDA
    events (the grouped sum at the shapes of both reduction passes,
    `padd_masked` also at every level of the naive engine's tree sum).
+   Holds the six kernels of the device-resident path the same way at its
+   2^20 shapes (w 16 in one batch of C 2048 x L 512: `to_niels` over 2^20
+   points, the gathering scan at L 512 x W 32 768, `lane_scan` at K 16,
+   `assemble_buckets` over K 16 x B 32 800 buckets without a carry,
+   `grouped_running_sum` at [32, 4, 16, 16 400], `reduce_finish` at 1 025
+   groups a window): rows labelled "[resident 2^20]".
 4. Drives every path with the launch counts set to 0 just before and read
    just after; each path names the kernels it must and must not launch:
    - the wire `compute_msm` on the pinned 2^16 and 2^20 inputs (regenerated
@@ -45,7 +51,19 @@
      device ladder and host combine timed apart;
    - routing at 2^16: `MSMPlan` on the hybrid engine or with a split keeps
      no resident bases and gives the wire calls' results, and
-     `compute_msm_batch` with a split gives per-call `compute_msm`'s.
+     `compute_msm_batch` with a split gives per-call `compute_msm`'s;
+   - the device-resident plan at 2^20: the pinned inputs as plain digit
+     planes and scalar words on the card, `_device_msm` with the rules
+     `resolved_window_size` / `resolved_chunking` (w 16, C 2048 x L 512),
+     one launch each of its six kernels and no other, cold and warm, with
+     no synchronizing call before the finish (PyTorch's sync check), a
+     profile and the peak device memory; `msm_window_sums` on the same
+     points gives the same window sums as points;
+   - the window sweep at 2^20: the wire `compute_msm` on the benchmark's
+     repeated-base case at every w of 8-20, signed and unsigned (26 calls,
+     printed as one JSON line with each wire plan), and the resident rule
+     at w 13-17 on the same inputs;
+   - a trace summary (`utils/trace.py`) of one warm 2^20 wire call.
    Every result must be the pinned one or, where none is pinned, the wire
    path's on the same inputs (or the oracle's). Every GPU `compute_msm` path
    launches the gathering scan, `lane_scan` and `assemble_buckets` once a
@@ -68,7 +86,9 @@ import shutil
 import subprocess
 import sys
 import time
+import warnings
 
+import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
@@ -84,6 +104,10 @@ CSRC = "webgpu_msm_tpu_torch/ops/kernels/csrc/"
 WIRE_KERNELS = ("to_niels_xy_rows", "accumulate_scan_gather", "lane_scan", "assemble_buckets",
                 "grouped_running_sum", "reduce_finish")
 BATCH_KERNELS = ("accumulate_scan_gather", "lane_scan", "assemble_buckets")  # one launch a batch
+# The device-resident path at 2^20: one batch, one launch of each.
+RESIDENT_KERNELS = ("to_niels", "accumulate_scan_gather", "lane_scan", "assemble_buckets",
+                    "grouped_running_sum", "reduce_finish")
+RESIDENT = " [resident 2^20]"  # the label of the kernel rows at the resident path's shapes
 MAD_PROBE = """
 #include <cuda_runtime.h>
 // Eight independent mad.lo.u32 chains a thread: nothing but multiply issue.
@@ -154,60 +178,70 @@ def max_abs_err(a, b) -> int:
 
 
 def kernel_inputs(gen: torch.Generator, dev, M=1 << 18, K=20, C=2048, L=128, B=4128,
-                  Gs=32) -> dict:
+                  Gs=32, top=65, carry=True, names=None) -> dict:
     """Seeded inputs at the main path's shapes (by default those of 2^20
     points: w = 13 signed, batches of M = 2^18, C = 2048, L = 128, so
-    K = 20 windows, B = 4128 buckets and Gs = 32)."""
+    K = 20 windows, B = 4128 buckets and Gs = 32), for the kernels in
+    `names` (every kernel by default). `top`: the top window's bucket ids
+    lie in [0, top); `carry`: whether `assemble_buckets` adds into one."""
+    want = lambda *ks: names is None or any(k in names for k in ks)
     W, G = K * C, B // Gs
-    # Sorted bucket ids per lane with random signs: runs of varying length.
-    ids = torch.sort(torch.randint(0, B, (W, L), generator=gen), dim=1).values.t()
-    signs = torch.randint(0, 2, (L, W), generator=gen) << 31
-    ids = (ids | signs).contiguous()
-    niels = field_planes(gen, (3,), L * W).to(torch.int64).reshape(3, 16, L, W)
-    packed = niels[:, 0::2] | (niels[:, 1::2] << 16)
     as_i32 = lambda t: torch.where(t >= 1 << 31, t - (1 << 32), t).to(torch.int32)
     pts = lambda lead, width: field_planes(gen, lead, width).to(dev)
-    scan = (as_i32(packed).contiguous().to(dev), as_i32(ids).to(dev))
-    # The gathering scan's input as a batch stage makes it: signed digits of
-    # M points per window, sorted, with the sort's permutation; packed rows.
-    digits = torch.randint(0, B, (K, C * L), generator=gen)
-    order = torch.sort(digits, dim=1, stable=True).indices
-    sorted_ids = torch.gather(digits | (torch.randint(0, 2, (K, C * L), generator=gen) << 31), 1, order)
     lanes = lambda t: as_i32(t).reshape(K, C, L).permute(2, 0, 1).reshape(L, W).contiguous().to(dev)
-    row_planes = field_planes(gen, (3,), C * L).to(torch.int64)
-    rows = as_i32(row_planes[:, 0::2] | (row_planes[:, 1::2] << 16)).reshape(24, C * L).t().contiguous()
-    # The lane scan's and the bucket assembly's inputs as a batch stage makes
-    # them: each window's ids sorted, the top window's from [0, 65) (253-bit
-    # scalars leave 6 bits and the signed carry to window 19 of w = 13), so
-    # that its buckets span dozens of lanes; final_id is the id of each
-    # lane's last step, sign bit stripped.
-    ldigits = torch.randint(0, B, (K, C * L), generator=gen)
-    ldigits[-1] = torch.randint(0, min(65, B), (C * L,), generator=gen)
-    ldigits = torch.sort(ldigits, dim=1).values
-    hist = torch.stack([torch.bincount(d, minlength=B) for d in ldigits])
-    e_pos = torch.cumsum(hist, dim=1)
-    final_id = ldigits[:, L - 1 :: L].reshape(W)
-    # Wire x||y rows of raw u32 words, most of them above p.
-    xy_rows = torch.randint(-(1 << 31), 1 << 31, (M, 16), generator=gen, dtype=torch.int32)
-    return {
-        "to_niels_xy": (pts((2,), M),),
-        "to_niels": (pts((3,), M),),
-        "accumulate_scan": scan,
-        "accumulate_scan_mma": scan,
-        "padd_masked": (
+    if want("accumulate_scan", "accumulate_scan_mma"):
+        # Sorted bucket ids per lane with random signs: runs of varying length.
+        ids = torch.sort(torch.randint(0, B, (W, L), generator=gen), dim=1).values.t()
+        signs = torch.randint(0, 2, (L, W), generator=gen) << 31
+        ids = (ids | signs).contiguous()
+        niels = field_planes(gen, (3,), L * W).to(torch.int64).reshape(3, 16, L, W)
+        packed = niels[:, 0::2] | (niels[:, 1::2] << 16)
+        scan = (as_i32(packed).contiguous().to(dev), as_i32(ids).to(dev))
+    if want("accumulate_scan_gather"):
+        # The gathering scan's input as a batch stage makes it: signed digits
+        # of C * L points per window, sorted, with the sort's permutation;
+        # packed rows.
+        digits = torch.randint(0, B, (K, C * L), generator=gen)
+        order = torch.sort(digits, dim=1, stable=True).indices
+        sorted_ids = torch.gather(digits | (torch.randint(0, 2, (K, C * L), generator=gen) << 31), 1, order)
+        row_planes = field_planes(gen, (3,), C * L).to(torch.int64)
+        rows = as_i32(row_planes[:, 0::2] | (row_planes[:, 1::2] << 16)).reshape(24, C * L).t().contiguous()
+    if want("lane_scan", "assemble_buckets"):
+        # The lane scan's and the bucket assembly's inputs as a batch stage
+        # makes them: each window's ids sorted, the top window's from
+        # [0, top) (253-bit scalars leave 6 bits and the signed carry to
+        # window 19 of w = 13: 65), so that its buckets span many lanes;
+        # final_id is the id of each lane's last step, sign bit stripped.
+        ldigits = torch.randint(0, B, (K, C * L), generator=gen)
+        ldigits[-1] = torch.randint(0, min(top, B), (C * L,), generator=gen)
+        ldigits = torch.sort(ldigits, dim=1).values
+        hist = torch.stack([torch.bincount(d, minlength=B) for d in ldigits])
+        e_pos = torch.cumsum(hist, dim=1)
+        final_id = ldigits[:, L - 1 :: L].reshape(W)
+    if want("to_niels_xy_rows"):
+        # Wire x||y rows of raw u32 words, most of them above p.
+        xy_rows = torch.randint(-(1 << 31), 1 << 31, (M, 16), generator=gen, dtype=torch.int32)
+    builders = {
+        "to_niels_xy": lambda: (pts((2,), M),),
+        "to_niels": lambda: (pts((3,), M),),
+        "accumulate_scan": lambda: scan,
+        "accumulate_scan_mma": lambda: scan,
+        "padd_masked": lambda: (
             pts((4,), W), pts((4,), W),
             torch.randint(0, 2, (W,), generator=gen, dtype=torch.int32).to(dev),
         ),
-        "padd": (pts((4,), K * B), pts((4,), K * B)),
-        "grouped_running_sum": (pts((Gs, 4), K * G),),
-        "grouped_running_sum pass 2": (pts((G, 4), 2 * K),),
-        "accumulate_scan_gather": (rows.to(dev), lanes(order), lanes(sorted_ids), K, B),
-        "reduce_finish": (pts((4,), K * G), pts((4,), K * G), K, Gs.bit_length() - 1),
-        "lane_scan": (pts((4,), W), final_id.to(torch.int32).to(dev), K),
-        "assemble_buckets": (pts((4,), K * B), pts((4,), W), hist.to(torch.int32).to(dev),
-                             e_pos.to(torch.int32).to(dev), L, pts((4,), K * B)),
-        "to_niels_xy_rows": (xy_rows.to(dev),),
+        "padd": lambda: (pts((4,), K * B), pts((4,), K * B)),
+        "grouped_running_sum": lambda: (pts((Gs, 4), K * G),),
+        "grouped_running_sum pass 2": lambda: (pts((G, 4), 2 * K),),
+        "accumulate_scan_gather": lambda: (rows.to(dev), lanes(order), lanes(sorted_ids), K, B),
+        "reduce_finish": lambda: (pts((4,), K * G), pts((4,), K * G), K, Gs.bit_length() - 1),
+        "lane_scan": lambda: (pts((4,), W), final_id.to(torch.int32).to(dev), K),
+        "assemble_buckets": lambda: (pts((4,), K * B), pts((4,), W), hist.to(torch.int32).to(dev),
+                                     e_pos.to(torch.int32).to(dev), L,
+                                     pts((4,), K * B) if carry else None),
+        "to_niels_xy_rows": lambda: (xy_rows.to(dev),),
     }
+    return {k: f() for k, f in builders.items() if want(k)}
 
 
 def tree_sum_levels(gen: torch.Generator, dev, W: int, padd_masked) -> list:
@@ -246,6 +280,26 @@ def mad_rate_per_s(build) -> float:
         check(rc == 0, f"mad_rate_probe: launch failed ({rc})")
 
     return n_blocks * threads * iters * 8 / (cuda_ms(launch, 5) * 1e-3)
+
+
+def hold(kname: str, kern, plain, args, reps: int, ops_per_s: float, replaces: str, source: str,
+         smi: str, label: str = "") -> dict:
+    """The kernel against its plain version on `args` (every digit equal),
+    its CUDA-event time and its bound: its row of the kernel table."""
+    got, _ = once_ms(lambda: kern(*args))
+    want, plain_ms = once_ms(lambda: plain(*args))
+    err = max_abs_err(got, want)
+    check(err == 0, f"{kname}{label}: kernel differs from its plain version (max abs err {err})")
+    del got, want
+    ms = cuda_ms(lambda: kern(*args), reps)
+    bound_ms, bound_by = bound(kname, args, ops_per_s)
+    print(f"kernel {kname}{label}: equal to plain on {tuple(args[0].shape)}; {ms:.4f} ms "
+          f"(plain {plain_ms:.1f} ms, bound {bound_ms:.4f} ms by {bound_by}) [{smi}]")
+    return {
+        "name": kname + label, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+    }
 
 
 def bound(name: str, args, ops_per_s: float) -> tuple[float, str]:
@@ -452,17 +506,22 @@ def drive(label: str, pk, fn, must: tuple, must_not: tuple, batches: int = 0,
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
-    from webgpu_msm_tpu_torch import MSMConfig, MSMPlan, api, compute_msm, compute_msm_batch
+    from webgpu_msm_tpu_torch import MSMConfig, MSMPlan, api, benchmark, compute_msm, compute_msm_batch
+    from webgpu_msm_tpu_torch.config import SUPPORTED_WINDOW_SIZES
     from webgpu_msm_tpu_torch.engines import baseline_engine, cpu_engine, gpu_engine, naive_engine
+    from webgpu_msm_tpu_torch.ops import pippenger
     from webgpu_msm_tpu_torch.ops.kernels import build
     from webgpu_msm_tpu_torch.runtime import build as native_build
     from webgpu_msm_tpu_torch.ops.kernels import padd_kernels as pk
     from webgpu_msm_tpu_torch.oracle import curve as ocurve
+    from webgpu_msm_tpu_torch.oracle.msm import combine_windows
     from webgpu_msm_tpu_torch.oracle.pinned_vectors import PINNED
-    from webgpu_msm_tpu_torch.utils import convert, fixtures
+    from webgpu_msm_tpu_torch.utils import convert, fixtures, trace
+    from webgpu_msm_tpu_torch.utils.interop import affine_from_planes
 
     dev = torch.device("cuda")
     # 1. device
@@ -530,22 +589,7 @@ def main() -> int:
     rows = {}
     for kname, (kern, plain, replaces, source, reps) in kernels.items():
         args = inputs[kname]
-        got, _ = once_ms(lambda: kern(*args))
-        want, plain_ms = once_ms(lambda: plain(*args))
-        err = max_abs_err(got, want)
-        check(err == 0, f"{kname}: kernel differs from its plain version (max abs err {err})")
-        del got, want
-        ms = cuda_ms(lambda: kern(*args), reps)
-        bound_ms, bound_by = bound(kname, args, ops_per_s)
-        rows[kname] = {
-            "name": kname, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": None, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None,
-        }
-        print(f"kernel {kname}: equal to plain on {tuple(args[0].shape)}; "
-              f"{ms:.4f} ms (plain {plain_ms:.1f} ms, bound {bound_ms:.4f} ms by {bound_by}) "
-              f"[{smi}]")
+        rows[kname] = hold(kname, kern, plain, args, reps, ops_per_s, replaces, source, smi)
         if kname == "grouped_running_sum":
             # The shape of the second reduction pass too: the main path runs
             # that pass inside reduce_finish, the kernel keeps the shape.
@@ -576,11 +620,30 @@ def main() -> int:
     scan_args = inputs["accumulate_scan"]
     del inputs
 
+    # 3b. the device-resident path's kernels at its 2^20 shapes: w 16 signed
+    # in one batch of C 2048 x L 512, so K 16 windows of B 32 800 buckets
+    # (1 025 groups of Gs 32 a window), the top window's ids below
+    # 2^13 + 1 (253-bit scalars), to_niels over W = 2^20, and the bucket
+    # assembly adding into no carry (as `msm_window_sums` runs it)
+    t0 = time.perf_counter()
+    resident_inputs = kernel_inputs(gen, dev, M=1 << 20, K=16, C=2048, L=512, B=32800,
+                                    top=(1 << 13) + 1, carry=False, names=RESIDENT_KERNELS)
+    resident_rows = {}
+    for kname in RESIDENT_KERNELS:
+        kern, plain, replaces, source, reps = kernels[kname]
+        resident_rows[kname] = hold(kname, kern, plain, resident_inputs.pop(kname), reps, ops_per_s,
+                                    replaces, source, smi, RESIDENT)
+        torch.cuda.empty_cache()
+    print(f"phase resident kernels: {time.perf_counter() - t0:.1f} s")
+
     # 4. the paths. Each is driven with the counts set to 0 just before and
     # read just after; launches made above do not count.
     cfg = MSMConfig()
     others = lambda *names: tuple(k for k in pk.KERNELS if k not in names)
     as_xy = lambda res: (res.x, res.y)
+    # window sums on the card (plain domain) -> the affine MSM result
+    affine_of = lambda out, w: ocurve.to_affine(combine_windows(
+        gpu_engine.window_sums_to_points(out.cpu().numpy()), w))
     inputs = {}
     for power in (16, 20):
         t0 = time.perf_counter()
@@ -842,9 +905,120 @@ def main() -> int:
     finally:
         gpu_engine.WirePlan = real_plan
 
+    # 4o. the device-resident plan at 2^20: the pinned points and scalars as
+    # plain digit planes and scalar words on the card before the clock,
+    # `_device_msm` with the device-resident rules (one batch)
+    t_resident = t0 = time.perf_counter()
+    planes, words = gpu_engine.marshal_points(points, N), gpu_engine.marshal_scalars(scalars, N)
+    marshal_s = time.perf_counter() - t0
+    pts_t, sc_t = (torch.from_numpy(a.view(np.int32)).to(dev) for a in (planes, words))
+    w_res, (C_res, L_res) = cfg.resolved_window_size(N), cfg.resolved_chunking(N)
+    check((w_res, C_res, L_res) == (16, 2048, 512), f"resident rules at 2^20: {(w_res, C_res, L_res)}")
+    signed = gpu_engine._signed_ok(cfg, words)
+    print(f"resident 2^20: w {w_res}, C {C_res} x L {L_res} (resolved_window_size, resolved_chunking), "
+          f"signed digits {signed}; marshalled on the host in {marshal_s:.1f} s, before the clock")
+    resident = lambda: gpu_engine._device_msm(pts_t, sc_t, window_size=w_res, n_chunks=C_res,
+                                              chunk_len=L_res, signed_digits=signed)
+    out, cold_ms, counts = drive("resident 2^20", pk, resident, RESIDENT_KERNELS, others(*RESIDENT_KERNELS))
+    check(all(counts[k] == 1 for k in RESIDENT_KERNELS), f"resident 2^20: launches {counts}, not one each")
+    check(affine_of(out, w_res) == PINNED[20], "resident 2^20: result differs from PINNED")
+    for kname in RESIDENT_KERNELS:
+        resident_rows[kname]["launches"] = counts[kname]
+    torch.cuda.reset_peak_memory_stats()
+    out, warm_ms = once_ms(resident)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(affine_of(out, w_res) == PINNED[20], "resident 2^20 warm call differs from PINNED")
+    # Nothing on the call may wait for the device: run it once more with
+    # PyTorch's synchronization check on and no sync around it.
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            out = resident()
+            queued_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message) for w in caught if "called a synchronizing CUDA operation" in str(w.message)]
+    check(not syncs, f"resident 2^20: the call synchronized with the device: {syncs}")
+    check(affine_of(out, w_res) == PINNED[20], "resident 2^20 (sync check) differs from PINNED")
+    busy = profile_call("resident 2^20", resident, warm_ms)
+    busy_ms, n_launches = busy if busy else (float("nan"), 0)
+    print(f"resident 2^20: equals PINNED[20]; launches {counts}; no synchronizing call before the finish")
+    print(f"resident 2^20 wall: cold {cold_ms:.1f} ms, warm {warm_ms:.1f} ms ({rate(warm_ms)}); host queueing "
+          f"{queued_ms:.1f} ms; device busy {busy_ms:.2f} ms, {n_launches} device launches; peak device "
+          f"memory {peak_gb:.3f} GB [{smi}]")
+    # msm_window_sums on the Niels planes of the same points: one batch added
+    # into no carry; its window sums equal the staged call's as points
+    sums = lambda: pippenger.msm_window_sums(pk.to_niels(pts_t), sc_t, window_size=w_res, n_chunks=C_res,
+                                             chunk_len=L_res, signed_digits=signed)
+    mont, ms, counts = drive("msm_window_sums 2^20", pk, sums, RESIDENT_KERNELS, others(*RESIDENT_KERNELS))
+    check(all(counts[k] == 1 for k in RESIDENT_KERNELS), f"msm_window_sums 2^20: launches {counts}")
+    check(affine_from_planes(mont.cpu().numpy()) == affine_from_planes(out.cpu().numpy(), mont=False),
+          "msm_window_sums 2^20: window sums differ from the staged call's as points")
+    print(f"msm_window_sums 2^20: window sums equal the staged call's as points; {ms:.1f} ms; "
+          f"launches {counts} [{smi}]")
+    del pts_t, sc_t, out, mont
+    print(f"phase resident: {time.perf_counter() - t_resident:.1f} s")
+
+    # 4p. the window sweep at 2^20: the wire compute_msm on the benchmark's
+    # repeated-base case at every supported w, signed and unsigned, with the
+    # wire plan's batches; then the resident rule at w 13-17 signed on the
+    # same inputs. Each call once for the launch counts and the result, then
+    # timed warm.
+    t_sweep = time.perf_counter()
+    pw_b, sw_b, want_b = benchmark._wire_case(N)
+    sweep = []
+    for digits_signed in (True, False):
+        for w in SUPPORTED_WINDOW_SIZES:
+            c = MSMConfig(window_size=w, signed_digits=digits_signed)
+            plan = c.resolved_wire_plan(N)
+            batches = -(-N // (plan[1] * plan[2]))
+            call = lambda: compute_msm(pw_b, sw_b, config=c, device=dev)
+            torch.cuda.reset_peak_memory_stats()
+            label = f"sweep w {w} {'signed' if digits_signed else 'unsigned'}"
+            res, first_ms, _ = drive(label, pk, call, WIRE_KERNELS, others(*WIRE_KERNELS), batches, batches)
+            check(as_xy(res) == want_b, f"{label}: result differs from sum(s) * B")
+            res, ms = once_ms(call)
+            check(as_xy(res) == want_b, f"{label}: warm result differs from sum(s) * B")
+            sweep.append({"w": w, "digits": "signed" if digits_signed else "unsigned", "wall_ms": ms,
+                          "first_ms": first_ms, "plan": list(plan), "batches": batches,
+                          "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+    planes_b = np.empty((3, 16, N), dtype=np.uint32)
+    for k in range(3):  # x, y, t of the wire rows as plain digit planes
+        coord = convert.be_rows_to_words_le(pw_b[:, 8 * k : 8 * k + 8])
+        planes_b[k, 0::2], planes_b[k, 1::2] = coord & 0xFFFF, coord >> 16
+    pts_t, sc_t = (torch.from_numpy(a.view(np.int32)).to(dev)
+                   for a in (planes_b, convert.be_rows_to_words_le(sw_b)))
+    resident_sweep = []
+    for w in range(13, 18):
+        call = lambda: gpu_engine._device_msm(pts_t, sc_t, window_size=w, n_chunks=C_res, chunk_len=L_res,
+                                              signed_digits=True)
+        out, first_ms = once_ms(call)
+        check(affine_of(out, w) == want_b, f"resident rule w {w}: result differs from sum(s) * B")
+        _, ms = once_ms(call)
+        resident_sweep.append({"w": w, "digits": "signed", "ms": ms, "first_ms": first_ms,
+                               "plan": [w, C_res, L_res]})
+    del pts_t, sc_t
+    best = min(resident_sweep, key=lambda r: r["ms"])
+    print(f"window sweep 2^20: all {len(sweep)} wire calls equal sum(s) * B; resident rule fastest at "
+          f"w {best['w']} ({best['ms']:.1f} ms) [{smi}]")
+    print(json.dumps({"window_sweep": sweep, "resident_sweep": resident_sweep, "card": smi}))
+    print(f"phase window sweep: {time.perf_counter() - t_sweep:.1f} s")
+
+    # 4q. the trace of one warm wire call: the JAX engine's phases, host clock
+    trace.reset()
+    res = compute_msm(pts, sc, config=cfg, device=dev)
+    check(as_xy(res) == PINNED[20], "traced wire call differs from PINNED")
+    print("trace summary (warm wire 2^20; host clock, 'device msm (wire)' is the queueing): "
+          + "; ".join(" ".join(line.split()) for line in trace.summary().splitlines()))
+
     # 5. summary lines
-    print("kernels: " + ", ".join(pk.KERNELS))
-    print(json.dumps({"kernels": [rows[k] for k in pk.KERNELS]}))
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the builds included")
+    print("kernels: " + ", ".join(pk.KERNELS) + "; at the resident shapes: " + ", ".join(RESIDENT_KERNELS))
+    print(json.dumps({"kernels": [rows[k] for k in pk.KERNELS]
+                      + [resident_rows[k] for k in RESIDENT_KERNELS]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
     return 0
 

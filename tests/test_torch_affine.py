@@ -25,9 +25,7 @@ from webgpu_msm_tpu_torch.engines import gpu_engine
 from webgpu_msm_tpu_torch.utils import convert, fixtures
 from webgpu_msm_tpu_torch.utils.interop import planes_from_numpy, planes_to_numpy
 
-# The tensors here are tiny: extra intra-op threads only contend with the
-# other test workers.
-torch.set_num_threads(1)
+from torch_threads import one_torch_thread  # noqa: F401  (one PyTorch CPU thread)
 
 STATIC = dict(window_size=8, n_chunks=4, chunk_len=4)
 

@@ -22,9 +22,7 @@ from webgpu_msm_tpu_torch.engines import gpu_engine
 from webgpu_msm_tpu_torch.ops import pippenger
 from webgpu_msm_tpu_torch.utils.interop import planes_from_numpy, planes_to_numpy
 
-# The tensors here are tiny: extra intra-op threads only contend with the
-# other test workers.
-torch.set_num_threads(1)
+from torch_threads import one_torch_thread  # noqa: F401  (one PyTorch CPU thread)
 
 W_, C_, L_ = 8, 8, 8
 M = C_ * L_

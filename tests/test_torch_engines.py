@@ -34,7 +34,7 @@ from webgpu_msm_tpu_torch.runtime import NativeBuildError
 from webgpu_msm_tpu_torch.runtime import build as native_build
 from webgpu_msm_tpu_torch.utils import convert, fixtures
 
-torch.set_num_threads(1)
+from torch_threads import one_torch_thread  # noqa: F401  (one PyTorch CPU thread)
 
 REPO = Path(__file__).resolve().parents[1]
 SPLIT = dict(window_size=8, cpu_work_ratio=0.25, n_chunks=8, chunk_len=8)  # n_gpu 72: two batches
@@ -62,10 +62,15 @@ def case():
 
 @pytest.fixture
 def jax_native(monkeypatch):
-    """The JAX `cpu_engine`, loading the port's build of the same source."""
+    """The JAX `cpu_engine`, loading the port's build of the same source.
+    Its native calls set the process's OpenMP thread count, which PyTorch
+    shares; PyTorch's count is put back afterwards, as the port's engine
+    does itself."""
     jbuild = importlib.import_module("webgpu_msm_tpu.runtime.build")
     monkeypatch.setattr(jbuild, "_lib", native_build.load())
-    return jcpu
+    threads = torch.get_num_threads()
+    yield jcpu
+    torch.set_num_threads(threads)
 
 
 def scaled(points, seed):
@@ -160,6 +165,19 @@ def test_cpu_engine_entry_point(case, monkeypatch):
     for cfg, co in ((MSMConfig(), False), (MSMConfig(), True), (MSMConfig(cpu_threads=3), True)):
         j = jconfig.MSMConfig(cpu_threads=cfg.cpu_threads)
         assert cpu_engine.resolved_threads(cfg, co) == jcpu.resolved_threads(j, co)
+
+
+@pytest.mark.parametrize("engine", ["cpu", "hybrid"])
+def test_native_calls_keep_torch_thread_count(case, engine):
+    """The native library and PyTorch share one OpenMP runtime: an engine
+    call that runs it leaves PyTorch's CPU thread count as it found it
+    (with 8 OpenMP threads left behind, each small CPU op of every later
+    call forks them)."""
+    pts, scalars, _, _, want = case
+    cfg = MSMConfig(window_size=8, cpu_work_ratio=1.0 if engine == "hybrid" else 0.0, cpu_threads=3)
+    before = torch.get_num_threads()
+    assert xy(tm.compute_msm(pts, scalars, config=cfg, device="cpu", engine=engine)) == want
+    assert torch.get_num_threads() == before == 1
 
 
 def test_add_affine_identity_and_doubling(jax_native):
@@ -269,17 +287,22 @@ def test_device_engines_need_a_device(case, engine, monkeypatch):
         tm.MSMPlan(pw, engine=engine)
 
 
-@pytest.mark.parametrize("fault", ["no compiler", "failing compile"])
+@pytest.mark.parametrize("fault", ["no compiler", "failing compile", "hanging compile"])
 def test_native_build_failure_raises(case, fault, monkeypatch, tmp_path):
     """No fallback to the oracle: without a working g++ the native engines
-    raise `NativeBuildError`."""
+    raise `NativeBuildError`; so does a compiler that outlasts the build's
+    time limit."""
     pts, scalars, _, _, _ = case
     monkeypatch.setattr(native_build, "_lib", None)
     monkeypatch.setattr(native_build, "BUILD_DIR", tmp_path)
     if fault == "no compiler":
         monkeypatch.setattr(native_build, "CXX", "g++-that-is-not-installed")
-    else:
+    elif fault == "failing compile":
         monkeypatch.setattr(native_build, "CXX_FLAGS", native_build.CXX_FLAGS + ("-fno-such-flag",))
+    else:  # a compiler that sleeps 30 s, stopped after 0.5 s
+        monkeypatch.setattr(native_build, "CXX", "sh")
+        monkeypatch.setattr(native_build, "CXX_FLAGS", ("-c", "exec sleep 30"))
+        monkeypatch.setattr(native_build, "BUILD_TIMEOUT_S", 0.5)
     with pytest.raises(NativeBuildError):
         tm.compute_msm(pts[:4], scalars[:4], engine="cpu")
     with pytest.raises(NativeBuildError):

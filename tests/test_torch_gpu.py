@@ -14,10 +14,12 @@ import pytest
 import torch
 
 from webgpu_msm_tpu_torch import MSMConfig, MSMPlan, compute_msm, compute_msm_batch
+from webgpu_msm_tpu_torch.engines import gpu_engine
+from webgpu_msm_tpu_torch.ops import pippenger
 from webgpu_msm_tpu_torch.ops.kernels import padd_kernels as pk
 from webgpu_msm_tpu_torch.oracle import curve, msm
 from webgpu_msm_tpu_torch.utils import convert, fixtures
-from webgpu_msm_tpu_torch.utils.interop import planes_from_numpy
+from webgpu_msm_tpu_torch.utils.interop import affine_from_planes, planes_from_numpy, planes_to_numpy
 
 pytestmark = pytest.mark.gpu
 
@@ -317,3 +319,20 @@ def test_padd_masked_at_tree_sum_widths_on_card(cuda, G):
         got = pk.padd_masked(a, b, mask)
         assert torch.equal(got, pk.padd_masked_plain(a, b, mask))
         a = got
+
+
+def test_msm_window_sums_at_the_resident_window_on_card(cuda):
+    """`msm_window_sums` at the device-resident window w 16 (B 32 800, K 16)
+    in one batch of C 64 x L 64, on points already on the card."""
+    n, w = 1 << 12, 16
+    pts = fixtures.distinct_points_fast(n, seed=47)
+    sc = fixtures.random_scalars(n, seed=48)
+    pk.reset_launch_counts()
+    niels = pk.to_niels(planes_from_numpy(gpu_engine.marshal_points(pts, n), cuda))
+    got = pippenger.msm_window_sums(niels, planes_from_numpy(gpu_engine.marshal_scalars(sc, n), cuda),
+                                    window_size=w, n_chunks=64, chunk_len=64, signed_digits=True)
+    wsums = [curve.from_affine(*xy) for xy in affine_from_planes(planes_to_numpy(got))]
+    assert curve.to_affine(msm.combine_windows(wsums, w)) == curve.to_affine(msm.msm(pts, sc, 8))
+    for name in ("to_niels", "accumulate_scan_gather", "lane_scan", "assemble_buckets",
+                 "grouped_running_sum", "reduce_finish"):
+        assert pk.launches[name] == 1, name

@@ -30,7 +30,7 @@ from webgpu_msm_tpu_torch.oracle.curve import ExtPoint
 from webgpu_msm_tpu_torch.utils import fixtures
 from webgpu_msm_tpu_torch.utils.interop import mont_planes_from_points, planes_from_numpy
 
-torch.set_num_threads(1)
+from torch_threads import one_torch_thread  # noqa: F401  (one PyTorch CPU thread)
 
 
 def xy(res):

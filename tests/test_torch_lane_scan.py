@@ -22,7 +22,7 @@ from webgpu_msm_tpu.ops import pippenger as jp
 from webgpu_msm_tpu_torch.ops.kernels import padd_kernels as pk
 from webgpu_msm_tpu_torch.utils.interop import planes_from_numpy, planes_to_numpy
 
-torch.set_num_threads(1)
+from torch_threads import one_torch_thread  # noqa: F401  (one PyTorch CPU thread)
 
 
 def rand_planes(rng, lead, width):

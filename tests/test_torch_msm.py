@@ -30,9 +30,7 @@ from webgpu_msm_tpu_torch import MSMConfig
 from webgpu_msm_tpu_torch.oracle import curve, field, msm, pinned_vectors, testdata
 from webgpu_msm_tpu_torch.utils import convert, fixtures
 
-# The tensors here are tiny: extra intra-op threads only contend with the
-# other test workers.
-torch.set_num_threads(1)
+from torch_threads import one_torch_thread  # noqa: F401  (one PyTorch CPU thread)
 
 REPO = Path(__file__).resolve().parents[1]
 CFG = MSMConfig(window_size=8, n_chunks=8, chunk_len=8)
@@ -163,10 +161,11 @@ def test_config_fields_keep_the_jax_defaults():
 
 
 def test_port_imports_no_jax():
-    """The package and chip_smoke.py import neither jax nor any module of
-    the JAX package."""
+    """The package, chip_smoke.py and bench_torch.py import neither jax nor
+    any module of the JAX package."""
     code = (
-        "import sys, webgpu_msm_tpu_torch, chip_smoke\n"
+        "import sys, webgpu_msm_tpu_torch, chip_smoke, bench_torch\n"
+        "import webgpu_msm_tpu_torch.benchmark, webgpu_msm_tpu_torch.utils.trace\n"
         "import webgpu_msm_tpu_torch.engines.gpu_engine, webgpu_msm_tpu_torch.ops.kernels.build\n"
         "import webgpu_msm_tpu_torch.utils.interop, webgpu_msm_tpu_torch.utils.fixtures\n"
         "import webgpu_msm_tpu_torch.ops.kernels.field_kernels_mma, webgpu_msm_tpu_torch.ops.kernels.padd_kernels\n"

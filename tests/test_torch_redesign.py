@@ -21,7 +21,7 @@ from webgpu_msm_tpu_torch.ops.kernels import padd_kernels as pk
 from webgpu_msm_tpu_torch.utils.interop import (
     affine_from_planes, mont_planes_from_points, planes_from_numpy, planes_to_numpy)
 
-torch.set_num_threads(1)
+from torch_threads import one_torch_thread  # noqa: F401  (one PyTorch CPU thread)
 
 S = 1 << 31  # sign flag
 K, C, L, B = 2, 4, 4, 8

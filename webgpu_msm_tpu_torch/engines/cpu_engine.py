@@ -15,6 +15,7 @@ import os
 from typing import Sequence
 
 import numpy as np
+import torch
 
 from ..config import MSMConfig
 from ..oracle import field as ofield
@@ -40,8 +41,15 @@ def _run(pts: np.ndarray, sc: np.ndarray, window_size: int, n_threads: int) -> t
     pts = np.ascontiguousarray(pts, dtype=np.uint64)
     sc = np.ascontiguousarray(sc, dtype=np.uint64)
     out = np.zeros(8, dtype=np.uint64)
-    rc = load().msm_run(pts.ctypes.data_as(_U64P), sc.ctypes.data_as(_U64P), pts.shape[0],
-                        window_size, n_threads, out.ctypes.data_as(_U64P))
+    # msm_run sets the calling thread's OpenMP thread count, and PyTorch's
+    # CPU ops share that runtime (one libgomp.so.1 in the process): put
+    # PyTorch's count back, or every later CPU op would fork n_threads.
+    torch_threads = torch.get_num_threads()
+    try:
+        rc = load().msm_run(pts.ctypes.data_as(_U64P), sc.ctypes.data_as(_U64P), pts.shape[0],
+                            window_size, n_threads, out.ctypes.data_as(_U64P))
+    finally:
+        torch.set_num_threads(torch_threads)
     if rc != 0:
         raise RuntimeError(f"msm_run failed with code {rc}")
     return _xy(out)

@@ -37,7 +37,7 @@ from ..oracle.curve import ExtPoint
 from ..oracle.msm import combine_windows
 from ..ops import field_ops, limbs, pippenger
 from ..ops.kernels import padd_kernels as pk
-from ..utils import convert
+from ..utils import convert, trace
 
 
 def resolve_device(device=None) -> torch.device:
@@ -251,8 +251,10 @@ def _device_msm(points_plain, scalar_words, *, window_size, n_chunks, chunk_len,
     """Staged MSM over [3, 16, n] plain planes and [8, n] LE scalar words,
     n a whole number of batches. numpy inputs are copied to `device` batch
     by batch from pinned memory, queued without waiting; tensors already on
-    a device are sliced there. Returns the finish stage's window sums on
-    the device, without synchronizing."""
+    a device are sliced there (device-resident inputs, called with
+    `config.resolved_window_size(n)` and `resolved_chunking(n)`: at 2^20
+    one batch, which is the whole input and is not copied). Returns the
+    finish stage's window sums on the device, without synchronizing."""
     M = n_chunks * chunk_len
     n = points_plain.shape[-1]
     assert n % M == 0, (n, M)
@@ -290,9 +292,20 @@ def _dispatch_planes(points: Sequence[ExtPoint], scalars: Sequence[int], config:
 
 def msm_window_sums_host(points: Sequence[ExtPoint], scalars: Sequence[int],
                          config: MSMConfig, device: torch.device):
-    """Run the device pipeline; (window sums as ExtPoints, LSB first, w)."""
-    out, w = _dispatch_planes(points, scalars, config, device)
-    return window_sums_to_points(out.cpu().numpy()), w
+    """Run the device pipeline; (window sums as ExtPoints, LSB first, w).
+    Traced as the JAX engine's two phases; "device msm" ends with the
+    fetch, so it holds the device's time."""
+    w, C, L, pad_to = _padded_plan(config, len(points))
+    with trace.phase("convert inputs"):
+        pts = marshal_points(points, pad_to)
+        sc = marshal_scalars(scalars, pad_to)
+    with trace.phase("device msm"):
+        out = _device_msm(
+            pts, sc, window_size=w, n_chunks=C, chunk_len=L, signed_digits=_signed_ok(config, sc),
+            device_affine=config.device_affine, device=device,
+        )
+        out_host = out.cpu().numpy()
+    return window_sums_to_points(out_host), w
 
 
 def msm_affine(points: Sequence[ExtPoint], scalars: Sequence[int], config: MSMConfig,
@@ -387,11 +400,15 @@ def _dispatch_wire(points_be: np.ndarray, scalars_be: np.ndarray, config: MSMCon
     if scalars_be.shape[0] != n:
         raise ValueError(f"points/scalars length mismatch: {n} vs {scalars_be.shape[0]}")
     w, C, L, pad_to = _padded_plan(config, n)
-    out = _device_msm_wire_staged(
-        _stage_xy(rows, pad_to, device), _stage_scalars(scalars_be, pad_to, device),
-        window_size=w, n_chunks=C, chunk_len=L, signed_digits=_signed_wire(config, scalars_be),
-        device_affine=config.device_affine, device=device,
-    )
+    with trace.phase("slice/pad inputs (wire)"):
+        xy_t = _stage_xy(rows, pad_to, device)
+        sc_t = _stage_scalars(scalars_be, pad_to, device)
+        signed = _signed_wire(config, scalars_be)
+    with trace.phase("device msm (wire)"):  # queued, not waited for
+        out = _device_msm_wire_staged(
+            xy_t, sc_t, window_size=w, n_chunks=C, chunk_len=L, signed_digits=signed,
+            device_affine=config.device_affine, device=device,
+        )
     return out, w
 
 

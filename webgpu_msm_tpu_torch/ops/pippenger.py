@@ -16,7 +16,12 @@ The counterpart of the JAX package's `ops/pippenger.py`:
 3. `reduce_and_finish`: the grouped running sum (`grouped_running_sum`
    over the buckets of each group), then `reduce_finish` over the groups,
    which also doubles log2(Gs) times, adds and leaves the Montgomery
-   domain. `reduce_buckets` is its Montgomery-domain output.
+   domain. `reduce_buckets` is its Montgomery-domain output. Gs is 16 or
+   32 for every supported window (B is a multiple of 32 and at least 160),
+   so the JAX package's other reductions (`reduce_buckets(group_size=)`,
+   the suffix scan `_suffix_weighted`) have no counterpart here.
+   `accumulate_and_reduce` (and its JAX name `msm_window_sums`) is 2 then 3
+   over points already on the device.
 4. `_tree_sum_axis`: a log-depth group sum over a trailing axis, one
    `padd_masked` launch a level (the naive engine's sum of its products).
 
@@ -156,12 +161,13 @@ def _accumulate_batch(
     # of each equal-id segment, the segment's total.
     carries = pk.lane_scan(final_acc, final_id, K)
 
-    # Bucket histogram and end positions; each bucket takes the total of the
-    # lanes that its run covers up to a lane edge.
-    k_idx = torch.arange(K, device=dev).reshape(K, 1)
-    hist = torch.bincount((k_idx * B + sorted_digits).reshape(-1), minlength=K * B)
-    hist = hist.to(torch.int32).reshape(K, B)
-    e_pos = torch.cumsum(hist, dim=1, dtype=torch.int32)  # first sorted index past bucket b
+    # Bucket end positions (the first sorted index past bucket b) and the
+    # histogram; each bucket takes the total of the lanes that its run covers
+    # up to a lane edge. A binary search of the sorted ids: `torch.bincount`
+    # would read its input's range back to the host, a sync every batch.
+    buckets = torch.arange(B, device=dev).expand(K, B).contiguous()
+    e_pos = torch.searchsorted(sorted_digits, buckets, right=True, out_int32=True)
+    hist = torch.diff(e_pos, dim=1, prepend=torch.zeros((K, 1), dtype=torch.int32, device=dev))
     if carry is not None:
         carry = carry.reshape(4, 16, K * B)
     return pk.assemble_buckets(partial, carries, hist, e_pos, L, carry).reshape(4, 16, K, B)
@@ -200,6 +206,31 @@ def reduce_and_finish(bucket_sums: torch.Tensor) -> tuple[torch.Tensor, torch.Te
 def reduce_buckets(bucket_sums: torch.Tensor) -> torch.Tensor:
     """Window sums [4, 16, K] int64 in the Montgomery domain."""
     return limbs.as_i64(reduce_and_finish(bucket_sums)[1])
+
+
+def accumulate_and_reduce(
+    points: torch.Tensor,  # [3, 16, n] int32 Montgomery Niels planes
+    scalar_words: torch.Tensor,  # [8, n] LE u32 words (int32 bits or int64)
+    *,
+    window_size: int,
+    n_chunks: int,
+    chunk_len: int,
+    signed_digits: bool = False,
+) -> torch.Tensor:
+    """The whole pipeline on the points' device -> window sums [4, 16, K]
+    int64 (Montgomery): `accumulate_buckets` with no carry (one batch adds
+    into nothing, as in the JAX package; more batches into an identity
+    carry), then `reduce_buckets`."""
+    bucket_sums = accumulate_buckets(
+        points, limbs.as_i64(scalar_words), window_size=window_size, n_chunks=n_chunks,
+        chunk_len=chunk_len, signed_digits=signed_digits,
+    )
+    return reduce_buckets(bucket_sums)
+
+
+# The JAX package's jitted entry, under its name: PyTorch runs eagerly, so
+# there is nothing to compile.
+msm_window_sums = accumulate_and_reduce
 
 
 def _tree_sum_axis(st: torch.Tensor) -> torch.Tensor:

@@ -25,6 +25,7 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "msm_cpu.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_native"
 CXX = "g++"
 CXX_FLAGS = ("-O3", "-march=native", "-fopenmp", "-shared", "-fPIC", "-std=c++17")
+BUILD_TIMEOUT_S = 300  # the build takes seconds; a compiler that hangs fails the call
 
 _lib: ctypes.CDLL | None = None
 
@@ -61,12 +62,14 @@ def build() -> Path:
     os.close(fd)
     try:
         subprocess.run([CXX, *CXX_FLAGS, "-o", tmp, str(SOURCE)],
-                       check=True, capture_output=True, text=True)
+                       check=True, capture_output=True, text=True, timeout=BUILD_TIMEOUT_S)
         os.replace(tmp, so)
     except FileNotFoundError as e:
         raise NativeBuildError(f"no C++ compiler ({CXX}): {e}") from e
     except subprocess.CalledProcessError as e:
         raise NativeBuildError(f"native build failed ({CXX}, OpenMP):\n{e.stderr}") from e
+    except subprocess.TimeoutExpired as e:
+        raise NativeBuildError(f"native build ({CXX}) still running after {e.timeout} s") from e
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)

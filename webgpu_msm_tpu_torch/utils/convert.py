@@ -65,3 +65,9 @@ def be_rows_to_words_le(arr: np.ndarray) -> np.ndarray:
     """[n, 8] big-endian rows (wire format) -> [8, n] little-endian planes."""
     arr = np.asarray(arr, dtype=np.uint32).reshape(-1, N_WORDS)
     return np.ascontiguousarray(arr[:, ::-1].T)
+
+
+def words_le_to_be_rows(arr: np.ndarray) -> np.ndarray:
+    """[8, n] little-endian planes -> [n, 8] big-endian rows."""
+    arr = np.asarray(arr, dtype=np.uint32)
+    return np.ascontiguousarray(arr.T[:, ::-1])
