@@ -59,6 +59,23 @@
      no synchronizing call before the finish (PyTorch's sync check), a
      profile and the peak device memory; `msm_window_sums` on the same
      points gives the same window sums as points;
+   - the multi-GPU layer (`parallel/`) at 2^20 on the same points, w 16
+     signed: one NCCL rank (`distributed.init` with world size 1 on a local
+     coordinator, `global_mesh`, `msm_window_sums_sharded` with one shard of
+     C 2048 x L 512) and `_multihost_worker 0 1 --device cuda` in a
+     subprocess (it must print MULTIHOST_OK); virtual meshes of D 2 and 4
+     shards on cuda:0 (C 2048 x L 512 / D a shard) in both collective
+     modes, each with the gathering scan, `lane_scan` and
+     `assemble_buckets` once a shard, the reduction once a shard
+     ("window_sums") or once ("buckets"), `padd_masked` (D - 1).bit_length()
+     times (the tree combine) and no other kernel, no synchronizing call
+     before the result is read, cold and warm wall, busy time, launches and
+     peak memory; `ShardedFixedBasePlan` at D 4 with two jobs of the
+     benchmark's repeated-base case (sum(s) * B; no `to_niels`, no
+     `pack_rows`); `padd_masked` held against its plain version at the
+     buckets-mode tree's shape [4, 16, 2 099 200] (row "[sharded 2^20]");
+     `scaling.print_report` against the resident call's warm time, with the
+     virtual weak-scaling trend at D 1, 2, 4 of 2^18 points a shard;
    - the window sweep at 2^20: the wire `compute_msm` on the benchmark's
      repeated-base case at every w of 8-20, signed and unsigned (26 calls,
      printed as one JSON line with each wire plan), and the resident rule
@@ -83,6 +100,7 @@ import ctypes
 import json
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import time
@@ -108,6 +126,7 @@ BATCH_KERNELS = ("accumulate_scan_gather", "lane_scan", "assemble_buckets")  # o
 RESIDENT_KERNELS = ("to_niels", "accumulate_scan_gather", "lane_scan", "assemble_buckets",
                     "grouped_running_sum", "reduce_finish")
 RESIDENT = " [resident 2^20]"  # the label of the kernel rows at the resident path's shapes
+SHARDED = " [sharded 2^20]"  # the label of the tree combine's row at the sharded path's shape
 MAD_PROBE = """
 #include <cuda_runtime.h>
 // Eight independent mad.lo.u32 chains a thread: nothing but multiply issue.
@@ -451,6 +470,32 @@ def timed_steps(steps: dict, sync: bool):
             setattr(mod, attr, originals[name])
 
 
+def queued_without_sync(label: str, fn):
+    """Run fn once with PyTorch's synchronization check on and no sync
+    around it: nothing on the call may wait for the device. Returns (its
+    result, host ms to queue it)."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            out = fn()
+            queued_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message) for w in caught if "called a synchronizing CUDA operation" in str(w.message)]
+    check(not syncs, f"{label}: the call synchronized with the device: {syncs}")
+    return out, queued_ms
+
+
+def free_port() -> int:
+    """A free TCP port on the loopback, for a local coordinator."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 def device_launches(fn) -> int:
     """Device kernels and copies the profiler records while fn runs."""
     from torch.autograd import DeviceType
@@ -520,6 +565,9 @@ def main() -> int:
     from webgpu_msm_tpu_torch.oracle import curve as ocurve
     from webgpu_msm_tpu_torch.oracle.msm import combine_windows
     from webgpu_msm_tpu_torch.oracle.pinned_vectors import PINNED
+    from webgpu_msm_tpu_torch.parallel import (ShardedFixedBasePlan, default_mesh, distributed,
+                                               msm_window_sums_sharded, scaling)
+    from webgpu_msm_tpu_torch.parallel.msm_sharded import window_sums_affine
     from webgpu_msm_tpu_torch.utils import convert, fixtures, trace
     from webgpu_msm_tpu_torch.utils.interop import affine_from_planes
 
@@ -928,20 +976,7 @@ def main() -> int:
     out, warm_ms = once_ms(resident)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(affine_of(out, w_res) == PINNED[20], "resident 2^20 warm call differs from PINNED")
-    # Nothing on the call may wait for the device: run it once more with
-    # PyTorch's synchronization check on and no sync around it.
-    torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            t0 = time.perf_counter()
-            out = resident()
-            queued_ms = (time.perf_counter() - t0) * 1e3
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    syncs = [str(w.message) for w in caught if "called a synchronizing CUDA operation" in str(w.message)]
-    check(not syncs, f"resident 2^20: the call synchronized with the device: {syncs}")
+    out, queued_ms = queued_without_sync("resident 2^20", resident)
     check(affine_of(out, w_res) == PINNED[20], "resident 2^20 (sync check) differs from PINNED")
     busy = profile_call("resident 2^20", resident, warm_ms)
     busy_ms, n_launches = busy if busy else (float("nan"), 0)
@@ -959,10 +994,141 @@ def main() -> int:
           "msm_window_sums 2^20: window sums differ from the staged call's as points")
     print(f"msm_window_sums 2^20: window sums equal the staged call's as points; {ms:.1f} ms; "
           f"launches {counts} [{smi}]")
-    del pts_t, sc_t, out, mont
+    del out, mont
     print(f"phase resident: {time.perf_counter() - t_resident:.1f} s")
 
-    # 4p. the window sweep at 2^20: the wire compute_msm on the benchmark's
+    # 4p. the multi-GPU layer at 2^20 on the same points and scalars, w 16
+    # signed (the resident rule): one NCCL rank (world size 1) and its
+    # worker process, virtual meshes of D 2 and 4 shards on cuda:0 in both
+    # collective modes, and the sharded fixed-base plan
+    t_sharded = time.perf_counter()
+    resident_s = warm_ms / 1e3
+    niels = pk.to_niels(pts_t)
+    batch_count = lambda counts, D, reductions: (
+        all(counts[k] == D for k in BATCH_KERNELS)
+        and counts["grouped_running_sum"] == counts["reduce_finish"] == reductions
+        and counts["padd_masked"] == (D - 1).bit_length())
+    sharded_kernels = BATCH_KERNELS + ("grouped_running_sum", "reduce_finish")
+
+    def sharded_call(label, call, D, reductions, sync_check=True):
+        """Drive one sharded call: launch counts, PINNED[20], cold and warm
+        wall, no sync before the result is read, busy time, launches, peak."""
+        must = sharded_kernels + (("padd_masked",) if D > 1 else ())
+        out, cold_ms, counts = drive(label, pk, call, must, others(*must))
+        check(batch_count(counts, D, reductions), f"{label}: launches {counts}")
+        check(window_sums_affine(out, w_res) == PINNED[20], f"{label}: result differs from PINNED")
+        torch.cuda.reset_peak_memory_stats()
+        out, warm = once_ms(call)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        check(window_sums_affine(out, w_res) == PINNED[20], f"{label}: warm result differs from PINNED")
+        queued = float("nan")
+        if sync_check:
+            out, queued = queued_without_sync(label, call)
+            check(window_sums_affine(out, w_res) == PINNED[20], f"{label} (sync check) differs from PINNED")
+        busy = profile_call(label, call, warm, top=6)
+        busy_ms, n_launches = busy if busy else (float("nan"), 0)
+        print(f"{label}: equals PINNED[20]; launches {counts}"
+              + ("; no synchronizing call before the result is read" if sync_check else ""))
+        print(f"{label} wall: cold {cold_ms:.1f} ms, warm {warm:.1f} ms ({rate(warm)}); host queueing "
+              f"{queued:.1f} ms; device busy {busy_ms:.2f} ms, idle share {1 - busy_ms / warm:.3f}, "
+              f"{n_launches} device launches; peak device memory {peak:.3f} GB [{smi}]")
+        return counts
+
+    # One NCCL rank over a local coordinator: the mesh of the world group,
+    # one shard of C 2048 x L 512, its all-gather a collective of one rank.
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # a single host: its loopback
+    distributed.init(coordinator_address=f"127.0.0.1:{free_port()}", num_processes=1, process_id=0,
+                     device=dev)
+    mesh = distributed.global_mesh()
+    check(mesh.group is not None and mesh.size == 1, f"world mesh: {mesh}")
+    sharded_call("sharded NCCL world 1 2^20", lambda: msm_window_sums_sharded(
+        niels, sc_t, window_size=w_res, n_chunks=C_res, chunk_len=L_res, mesh=mesh, signed_digits=signed),
+        1, 1, sync_check=False)
+    torch.distributed.destroy_process_group()
+    worker = subprocess.run(
+        [sys.executable, "-m", "webgpu_msm_tpu_torch.parallel._multihost_worker", "0", "1", str(free_port()),
+         "--device", "cuda"], capture_output=True, text=True, timeout=300)
+    check(worker.returncode == 0 and "MULTIHOST_OK process=0/1" in worker.stdout,
+          f"_multihost_worker 0 1 on NCCL failed ({worker.returncode}):\n{worker.stdout[-3000:]}"
+          f"\n{worker.stderr[-3000:]}")
+    print("_multihost_worker 0 1 --device cuda: " + worker.stdout.strip().splitlines()[-1])
+
+    # Virtual meshes: D shards of C 2048 x L 512 / D on cuda:0, both modes.
+    for D in (2, 4):
+        vmesh = default_mesh(D, device=dev)
+        for mode in ("window_sums", "buckets"):
+            call = lambda: msm_window_sums_sharded(niels, sc_t, window_size=w_res, n_chunks=C_res,
+                                                   chunk_len=L_res // D, mesh=vmesh, mode=mode,
+                                                   signed_digits=signed)
+            counts = sharded_call(f"sharded virtual D {D} {mode} 2^20", call, D,
+                                  D if mode == "window_sums" else 1)
+            if (D, mode) == (4, "buckets"):
+                tree_launches = counts["padd_masked"]
+    del niels
+
+    # The sharded fixed-base plan at D 4: the benchmark's repeated-base case
+    # (the base point B, 2^20 times) placed once; two scalar jobs equal
+    # sum(s) * B and launch neither to_niels nor pack_rows.
+    pw_b, sw_b, want_b = benchmark._wire_case(N)
+    _, sw_c, want_c = benchmark._wire_case(N, seed=100)
+    planes_b = np.empty((3, 16, N), dtype=np.uint32)
+    for k in range(3):  # x, y, t of the wire rows as plain digit planes
+        coord = convert.be_rows_to_words_le(pw_b[:, 8 * k : 8 * k + 8])
+        planes_b[k, 0::2], planes_b[k, 1::2] = coord & 0xFFFF, coord >> 16
+    bases = pk.to_niels(torch.from_numpy(planes_b.view(np.int32)).to(dev))
+    vmesh = default_mesh(4, device=dev)
+    plan, build_ms = once_ms(lambda: ShardedFixedBasePlan(bases, window_size=w_res, n_chunks=C_res,
+                                                          chunk_len=L_res // 4, mesh=vmesh,
+                                                          signed_digits=True))
+    del bases
+    jobs = [(torch.from_numpy(convert.be_rows_to_words_le(s).view(np.int32)).to(dev), want)
+            for s, want in ((sw_b, want_b), (sw_c, want_c))]
+    packed = []
+    real_pack = pippenger.pack_rows
+    pippenger.pack_rows = lambda *a: packed.append(1) or real_pack(*a)
+    try:
+        got, jobs_ms, counts = drive("sharded plan D 4 jobs 2^20", pk,
+                                     lambda: [window_sums_affine(plan.window_sums(w), w_res) for w, _ in jobs],
+                                     sharded_kernels + ("padd_masked",),
+                                     others(*sharded_kernels, "padd_masked"))
+    finally:
+        pippenger.pack_rows = real_pack
+    check(got == [want for _, want in jobs], "sharded plan jobs: results differ from sum(s) * B")
+    check(not packed and all(counts[k] == 8 for k in sharded_kernels) and counts["padd_masked"] == 4,
+          f"sharded plan jobs: launches {counts} (2 jobs of 4 shards), pack_rows {len(packed)}")
+    print(f"sharded plan D 4 2^20: build {build_ms:.1f} ms; 2 jobs equal sum(s) * B in {jobs_ms:.1f} ms "
+          f"(the host's window combine included), no to_niels and no pack_rows; launches {counts} [{smi}]")
+    job = lambda: plan.window_sums(jobs[1][0])
+    torch.cuda.reset_peak_memory_stats()
+    out, job_ms = once_ms(job)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(window_sums_affine(out, w_res) == jobs[1][1], "sharded plan job: result differs from sum(s) * B")
+    busy = profile_call("sharded plan D 4 job 2^20", job, job_ms, top=4)
+    busy_ms, n_launches = busy if busy else (float("nan"), 0)
+    print(f"sharded plan D 4 job 2^20 wall: warm {job_ms:.1f} ms; device busy {busy_ms:.2f} ms, idle share "
+          f"{1 - busy_ms / job_ms:.3f}, {n_launches} device launches; peak device memory {peak:.3f} GB [{smi}]")
+    del plan, jobs, out
+
+    # The combine's kernel at the buckets-mode tree shape of D 4: [4, 16,
+    # K * B * D] = [4, 16, 2 099 200] lanes, level d = 1 of the roll loop.
+    K_res, B_res = 16, pippenger.n_buckets(w_res, True)
+    a = field_planes(gen, (4,), K_res * B_res * 4).to(dev)
+    b = torch.roll(a.reshape(4, 16, K_res, B_res, 4), -1, dims=-1).reshape(a.shape)
+    lane = torch.arange(4, device=dev).expand(K_res, B_res, 4).reshape(-1)
+    kern, plain, replaces, source, reps = kernels["padd_masked"]
+    sharded_row = hold("padd_masked", kern, plain, (a, b, (lane + 1 < 4).to(torch.int32)), reps, ops_per_s,
+                       replaces, source, smi, SHARDED)
+    sharded_row["launches"] = tree_launches
+    del a, b, lane
+    torch.cuda.empty_cache()
+
+    # The collective model against the resident call measured above, and the
+    # virtual weak-scaling trend (2^18 points a shard).
+    scaling.print_report(resident_s, device=dev, trend=dict(window_size=16, n_chunks=2048, chunk_len=128))
+    del pts_t, sc_t
+    print(f"phase sharded: {time.perf_counter() - t_sharded:.1f} s")
+
+    # 4q. the window sweep at 2^20: the wire compute_msm on the benchmark's
     # repeated-base case at every supported w, signed and unsigned, with the
     # wire plan's batches; then the resident rule at w 13-17 signed on the
     # same inputs. Each call once for the launch counts and the result, then
@@ -1007,7 +1173,7 @@ def main() -> int:
     print(json.dumps({"window_sweep": sweep, "resident_sweep": resident_sweep, "card": smi}))
     print(f"phase window sweep: {time.perf_counter() - t_sweep:.1f} s")
 
-    # 4q. the trace of one warm wire call: the JAX engine's phases, host clock
+    # 4r. the trace of one warm wire call: the JAX engine's phases, host clock
     trace.reset()
     res = compute_msm(pts, sc, config=cfg, device=dev)
     check(as_xy(res) == PINNED[20], "traced wire call differs from PINNED")
@@ -1016,9 +1182,10 @@ def main() -> int:
 
     # 5. summary lines
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the builds included")
-    print("kernels: " + ", ".join(pk.KERNELS) + "; at the resident shapes: " + ", ".join(RESIDENT_KERNELS))
+    print("kernels: " + ", ".join(pk.KERNELS) + "; at the resident shapes: " + ", ".join(RESIDENT_KERNELS)
+          + "; at the sharded tree's shape: padd_masked")
     print(json.dumps({"kernels": [rows[k] for k in pk.KERNELS]
-                      + [resident_rows[k] for k in RESIDENT_KERNELS]}))
+                      + [resident_rows[k] for k in RESIDENT_KERNELS] + [sharded_row]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
     return 0
 

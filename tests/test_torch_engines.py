@@ -86,10 +86,11 @@ def scaled(points, seed):
 # ---- config ----------------------------------------------------------------
 
 def test_config_fields_match_jax():
-    """The JAX fields and defaults, but for `collective_mode` (multi-GPU)."""
+    """The JAX fields and defaults, every one (`collective_mode` with the
+    multi-GPU layer)."""
     port = {f.name: f.default for f in dataclasses.fields(MSMConfig)}
     ref = {f.name: f.default for f in dataclasses.fields(jconfig.MSMConfig)}
-    assert port == {k: v for k, v in ref.items() if k != "collective_mode"}
+    assert port == ref
     cfg = MSMConfig(cpu_work_ratio=0.2, cpu_threads=2)
     assert (cfg.cpu_work_ratio, cfg.cpu_threads) == (0.2, 2)
 

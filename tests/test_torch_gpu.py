@@ -336,3 +336,50 @@ def test_msm_window_sums_at_the_resident_window_on_card(cuda):
     for name in ("to_niels", "accumulate_scan_gather", "lane_scan", "assemble_buckets",
                  "grouped_running_sum", "reduce_finish"):
         assert pk.launches[name] == 1, name
+
+
+@pytest.mark.parametrize("mode", ["window_sums", "buckets"])
+def test_virtual_mesh_of_2_on_card_matches_oracle(cuda, mode):
+    """The sharded MSM on two shards of cuda:0 (w 8 signed, C 8 x L 8): the
+    oracle's result; each shard launches the batch kernels once, the
+    reduction runs once a shard (window_sums) or once (buckets), and the
+    tree combine launches `padd_masked` once."""
+    from webgpu_msm_tpu_torch.parallel import default_mesh, msm_window_sums_sharded
+    from webgpu_msm_tpu_torch.parallel.msm_sharded import window_sums_affine
+
+    n, w = 128, 8
+    pts = fixtures.distinct_points_fast(n, seed=51)
+    sc = fixtures.random_scalars(n, seed=52)
+    niels = pk.to_niels(planes_from_numpy(gpu_engine.marshal_points(pts, n), cuda))
+    words = planes_from_numpy(gpu_engine.marshal_scalars(sc, n), cuda)
+    pk.reset_launch_counts()
+    got = msm_window_sums_sharded(niels, words, window_size=w, n_chunks=8, chunk_len=8,
+                                  mesh=default_mesh(2, device=cuda), mode=mode, signed_digits=True)
+    reductions = 2 if mode == "window_sums" else 1
+    assert pk.launches == {
+        "accumulate_scan_gather": 2, "lane_scan": 2, "assemble_buckets": 2, "padd_masked": 1,
+        "grouped_running_sum": reductions, "reduce_finish": reductions,
+        **{k: 0 for k in ("to_niels_xy", "accumulate_scan", "padd", "to_niels", "accumulate_scan_mma",
+                          "to_niels_xy_rows")},
+    }
+    assert window_sums_affine(got, w) == curve.to_affine(msm.msm(pts, sc, w))
+
+
+@pytest.mark.parametrize("D", [2, 4, 5])
+def test_padd_masked_at_the_tree_combine_shape_on_card(cuda, D):
+    """`padd_masked` at the buckets-mode tree's shape ([4, 16, K * B * D],
+    w 8 signed: K 32, B 160), level by level as `tree_add_points` runs it."""
+    from webgpu_msm_tpu_torch.parallel import tree_add_points
+
+    st = planes_from_numpy(rand_planes(np.random.default_rng(D), (D, 4), 32 * 160), cuda)
+    st = st.reshape(D, 4, 16, 32, 160)
+    a = st.movedim(0, -1).reshape(4, 16, -1).contiguous()
+    lane = torch.arange(D, device=cuda).expand(32, 160, D).reshape(-1)
+    for i in range((D - 1).bit_length()):
+        d = 1 << i
+        b = torch.roll(a.reshape(4, 16, 32, 160, D), -d, dims=-1).reshape(a.shape)
+        mask = (lane + d < D).to(torch.int32)
+        got = pk.padd_masked(a, b, mask)
+        assert torch.equal(got, pk.padd_masked_plain(a, b, mask))
+        a = got
+    assert torch.equal(tree_add_points(st), a.reshape(4, 16, 32, 160, D)[..., 0])

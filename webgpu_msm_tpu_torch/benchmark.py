@@ -7,13 +7,15 @@ collects `[inputSize, msmFunc, timeMS, correct]` rows with a CSV export.
 
     python -m webgpu_msm_tpu_torch.benchmark --sizes 16,18,20 --engines gpu,cpu \
         --csv results.csv [--window-sweep [--signed] [--unsigned]] [--device cpu]
+    python -m webgpu_msm_tpu_torch.benchmark --scaling [--device cpu]
 
 Engines are the port's (`gpu` is the JAX package's `tpu`). Without
 `--device` the GPU engines run on the card (and fail without one);
 `--device cpu` runs every kernel's plain PyTorch version. The window sweep
 covers the signed digits of the default configuration, or the digit forms
-named with `--signed` and `--unsigned`. The JAX harness's `--scaling`
-report belongs to the multi-GPU layer, which the port does not have yet.
+named with `--signed` and `--unsigned`. `--scaling` prints the multi-GPU
+layer's collective model and its virtual-mesh trend
+(`python -m webgpu_msm_tpu_torch.parallel.scaling`, run as a subprocess).
 """
 from __future__ import annotations
 
@@ -126,7 +128,16 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--unsigned", action="store_true", help="sweep unsigned digits")
     ap.add_argument("--ratio-sweep", action="store_true",
                     help="sweep cpu_work_ratio splits on wire inputs")
+    ap.add_argument("--scaling", action="store_true",
+                    help="multi-GPU scaling report: the NVLink payload model and the "
+                    "virtual-mesh weak-scaling trend (parallel/scaling.py)")
     args = ap.parse_args(argv)
+
+    if args.scaling:
+        import subprocess
+
+        device = [] if args.device is None else ["--device", args.device]
+        return subprocess.call([sys.executable, "-m", "webgpu_msm_tpu_torch.parallel.scaling", *device])
 
     sizes = [int(s) for s in args.sizes.split(",")]
     windows = list(SUPPORTED_WINDOW_SIZES) if args.window_sweep else None

@@ -72,6 +72,10 @@ class MSMConfig:
     # inverse, `field_ops.finv_mont`) before the host combines them. Off by
     # default: a capability of the reference, not a speed-up.
     device_affine: bool = False
+    # Multi-GPU (`parallel/msm_sharded.py`): what the shards all-gather.
+    #   "window_sums": each shard's window sums (K points a shard); default
+    #   "buckets":     each shard's bucket sums, tree-added, reduced once
+    collective_mode: str = "window_sums"
 
     def resolved_window_size(self, n_points: int) -> int:
         """Window size for device-resident inputs, and the oracle's."""

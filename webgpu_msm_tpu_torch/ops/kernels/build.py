@@ -28,20 +28,21 @@ NVCC_FLAGS = (
 )
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# C entry point -> argument types; each returns cudaGetLastError() as int.
+# C entry point -> argument types, the last two the device index of the
+# tensors and the stream; each returns cudaGetLastError() as int.
 SIGNATURES = {
-    "launch_to_niels_xy": (_P, _P, _I, _P),
-    "launch_to_niels": (_P, _P, _I, _P),
-    "launch_padd": (_P, _P, _P, _I, _P),
-    "launch_padd_masked": (_P, _P, _P, _P, _I, _P),
-    "launch_accumulate_scan": (_P, _P, _P, _P, _P, _I, _I, _P),
-    "launch_accumulate_scan_mma": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
-    "launch_accumulate_scan_gather": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "launch_grouped_running_sum": (_P, _P, _P, _I, _I, _I, _P),
-    "launch_reduce_finish": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "launch_lane_scan": (_P, _P, _P, _P, _I, _I, _P),
-    "launch_assemble_buckets": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "launch_to_niels_xy_rows": (_P, _P, _I, _P),
+    "launch_to_niels_xy": (_P, _P, _I, _I, _P),
+    "launch_to_niels": (_P, _P, _I, _I, _P),
+    "launch_padd": (_P, _P, _P, _I, _I, _P),
+    "launch_padd_masked": (_P, _P, _P, _P, _I, _I, _P),
+    "launch_accumulate_scan": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "launch_accumulate_scan_mma": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "launch_accumulate_scan_gather": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "launch_grouped_running_sum": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "launch_reduce_finish": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "launch_lane_scan": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "launch_assemble_buckets": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "launch_to_niels_xy_rows": (_P, _P, _I, _I, _P),
 }
 
 _lib: ctypes.CDLL | None = None

@@ -18,6 +18,8 @@
 #include <cstddef>
 #include <cstdint>
 
+#include <cuda_runtime.h>
+
 namespace msm {
 
 typedef uint32_t u32;
@@ -287,5 +289,11 @@ __device__ __forceinline__ void store_pt(int32_t* dst, size_t stride, size_t bas
   store_fp(dst, stride, base + 32 * stride, p.t);
   store_fp(dst, stride, base + 48 * stride, p.z);
 }
+
+// Host side, first in every launch function: make `device`, the device of
+// the launch's tensors, current on the calling thread. The runtime launches
+// on its current device, which need not be theirs when a process drives
+// several cards. 0 on success, else the runtime's error.
+inline int use_device(int device) { return (int)cudaSetDevice(device); }
 
 }  // namespace msm

@@ -220,7 +220,8 @@ extern "C" __global__ void __launch_bounds__(kMmaThreads)
 
 extern "C" int launch_accumulate_scan_mma(const void* pts, const void* ids, const void* m1,
                                           const void* m2, void* staged, void* final_acc,
-                                          void* final_id, int L, int W, void* stream) {
+                                          void* final_id, int L, int W, int device, void* stream) {
+  if (const int err = use_device(device)) return err;
   const int grid = (W + kMmaThreads - 1) / kMmaThreads;
   accumulate_scan_mma_kernel<<<grid, kMmaThreads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)pts, (const int32_t*)ids, (const u32*)m1, (const u32*)m2,

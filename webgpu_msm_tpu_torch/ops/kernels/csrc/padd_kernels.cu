@@ -623,42 +623,51 @@ reduce_finish_kernel(const int32_t* __restrict__ T, const int32_t* __restrict__ 
 }
 
 // ---------------------------------------------------------------------------
-// Plain C entry points for ctypes: each launches on the given stream and
+// Plain C entry points for ctypes: each makes `device` (the index of the
+// tensors' card) current, launches on the given stream of that card and
 // returns cudaGetLastError() (0 on success). Sizes are positive.
 // ---------------------------------------------------------------------------
-extern "C" int launch_to_niels_xy(const void* in, void* out, int M, void* stream) {
+extern "C" int launch_to_niels_xy(const void* in, void* out, int M, int device, void* stream) {
+  if (const int err = use_device(device)) return err;
   to_niels_xy_kernel<<<blocks(M, kThreads), kThreads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)in, (int32_t*)out, M);
   return (int)cudaGetLastError();
 }
 
-extern "C" int launch_to_niels_xy_rows(const void* in, void* out, int M, void* stream) {
+extern "C" int launch_to_niels_xy_rows(const void* in, void* out, int M, int device,
+                                       void* stream) {
+  if (const int err = use_device(device)) return err;
   to_niels_xy_rows_kernel<<<blocks(M, kThreads), kThreads, 0, (cudaStream_t)stream>>>(
       (const int4*)in, (int4*)out, M);
   return (int)cudaGetLastError();
 }
 
-extern "C" int launch_to_niels(const void* in, void* out, int W, void* stream) {
+extern "C" int launch_to_niels(const void* in, void* out, int W, int device, void* stream) {
+  if (const int err = use_device(device)) return err;
   to_niels_kernel<<<blocks(W, kThreads), kThreads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)in, (int32_t*)out, W);
   return (int)cudaGetLastError();
 }
 
-extern "C" int launch_padd(const void* a, const void* b, void* out, int W, void* stream) {
+extern "C" int launch_padd(const void* a, const void* b, void* out, int W, int device,
+                           void* stream) {
+  if (const int err = use_device(device)) return err;
   padd_kernel<<<blocks(W, kThreads), kThreads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)a, (const int32_t*)b, (int32_t*)out, W);
   return (int)cudaGetLastError();
 }
 
 extern "C" int launch_padd_masked(const void* a, const void* b, const void* mask, void* out,
-                                  int W, void* stream) {
+                                  int W, int device, void* stream) {
+  if (const int err = use_device(device)) return err;
   padd_masked_kernel<<<blocks(W, kThreads), kThreads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)a, (const int32_t*)b, (const int32_t*)mask, (int32_t*)out, W);
   return (int)cudaGetLastError();
 }
 
 extern "C" int launch_lane_scan(const void* in, const void* ids, void* out, void* scratch,
-                                int K, int C, void* stream) {
+                                int K, int C, int device, void* stream) {
+  if (const int err = use_device(device)) return err;
   // A cluster of up to 8 blocks (the portable maximum) of up to 256 threads
   // a window; beyond 2048 lanes each thread takes several.
   const int threads = C < 256 ? (C + 31) / 32 * 32 : 256;
@@ -684,7 +693,8 @@ extern "C" int launch_lane_scan(const void* in, const void* ids, void* out, void
 
 extern "C" int launch_assemble_buckets(const void* partial, const void* carries, const void* hist,
                                        const void* e_pos, const void* carry, void* out, int K,
-                                       int B, int C, int L, void* stream) {
+                                       int B, int C, int L, int device, void* stream) {
+  if (const int err = use_device(device)) return err;
   assemble_buckets_kernel<<<blocks(K * B, kThreads), kThreads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)partial, (const int32_t*)carries, (const int32_t*)hist,
       (const int32_t*)e_pos, (const int32_t*)carry, (int32_t*)out, K, B, C, L);
@@ -693,7 +703,8 @@ extern "C" int launch_assemble_buckets(const void* partial, const void* carries,
 
 extern "C" int launch_accumulate_scan(const void* pts, const void* ids, void* staged,
                                       void* final_acc, void* final_id, int L, int W,
-                                      void* stream) {
+                                      int device, void* stream) {
+  if (const int err = use_device(device)) return err;
   accumulate_scan_kernel<<<blocks(W, kScanThreads), kScanThreads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)pts, (const int32_t*)ids, (int32_t*)staged, (int32_t*)final_acc,
       (int32_t*)final_id, L, W);
@@ -703,7 +714,8 @@ extern "C" int launch_accumulate_scan(const void* pts, const void* ids, void* st
 extern "C" int launch_accumulate_scan_gather(const void* rows, const void* perm,
                                              const void* ids, void* partial, void* final_acc,
                                              void* final_id, int L, int W, int C, int B,
-                                             void* stream) {
+                                             int device, void* stream) {
+  if (const int err = use_device(device)) return err;
   constexpr int kGatherThreads = 256;  // 64 lanes a block
   accumulate_scan_gather_kernel<<<blocks(4 * W, kGatherThreads), kGatherThreads, 0,
                                   (cudaStream_t)stream>>>(
@@ -713,7 +725,8 @@ extern "C" int launch_accumulate_scan_gather(const void* rows, const void* perm,
 }
 
 extern "C" int launch_grouped_running_sum(const void* s, void* T, void* U, int Gs, int W,
-                                          int P, void* stream) {
+                                          int P, int device, void* stream) {
+  if (const int err = use_device(device)) return err;
   const int threads = P > kThreads ? P : kThreads, lanes = threads / P;
   grouped_running_sum_kernel<<<blocks(W, lanes), threads, 128 * threads,
                                (cudaStream_t)stream>>>((const int32_t*)s, (int32_t*)T,
@@ -723,7 +736,8 @@ extern "C" int launch_grouped_running_sum(const void* s, void* T, void* U, int G
 
 extern "C" int launch_reduce_finish(const void* T, const void* U, void* out_plain,
                                     void* out_mont, int G, int K, int P, int doublings,
-                                    void* stream) {
+                                    int device, void* stream) {
+  if (const int err = use_device(device)) return err;
   reduce_finish_kernel<<<K, 2 * P, 256 * P, (cudaStream_t)stream>>>(
       (const int32_t*)T, (const int32_t*)U, (int32_t*)out_plain, (int32_t*)out_mont, G, K, P,
       doublings);

@@ -3,8 +3,8 @@
 Each wrapper takes int32 tensors holding u32 bits, at the JAX package's
 layouts (`ops/pallas/padd_kernels.py`). A tensor on the CPU goes to the
 kernel's plain PyTorch version; a CUDA tensor launches the hand-written
-sm_90a kernel of `csrc/*.cu` on the current stream, or raises.
-No wrapper falls back from the kernel to the plain version.
+sm_90a kernel of `csrc/*.cu` on the tensors' card and its current stream,
+or raises. No wrapper falls back from the kernel to the plain version.
 
 `launches[name]` counts the kernel launches of each wrapper (never the
 plain calls), so a run can show that it went through the kernels.
@@ -59,11 +59,16 @@ def _shape(name: str, t: torch.Tensor, shape: tuple) -> None:
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
 
 
-def _launch(name: str, fn: str, *args) -> None:
+def _launch(name: str, fn: str, device: torch.device, *args) -> None:
+    """Launch `fn` on `device`, the card of the launch's tensors: under
+    `torch.cuda.device(device)`, on that card's current stream, with its
+    index passed on for the library to make current (the current device of
+    the process may be another card)."""
     from . import build
 
     lib = build.load()
-    rc = getattr(lib, fn)(*args, torch.cuda.current_stream().cuda_stream)
+    with torch.cuda.device(device):
+        rc = getattr(lib, fn)(*args, device.index, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed: {lib.msm_error_string(rc).decode()}")
     launches[name] += 1
@@ -92,7 +97,7 @@ def to_niels_xy(pts: torch.Tensor) -> torch.Tensor:
     if not _on_card("to_niels_xy", pts):
         return to_niels_xy_plain(pts)
     out = torch.empty((3, 16, M), dtype=torch.int32, device=pts.device)
-    _launch("to_niels_xy", "launch_to_niels_xy", pts.data_ptr(), out.data_ptr(), M)
+    _launch("to_niels_xy", "launch_to_niels_xy", pts.device, pts.data_ptr(), out.data_ptr(), M)
     return out
 
 
@@ -127,7 +132,8 @@ def to_niels_xy_rows(xy_be: torch.Tensor) -> torch.Tensor:
     if xy_be.data_ptr() % 16:
         raise ValueError("to_niels_xy_rows: rows must start on a 16-byte boundary")
     out = torch.empty((M, 24), dtype=torch.int32, device=xy_be.device)
-    _launch("to_niels_xy_rows", "launch_to_niels_xy_rows", xy_be.data_ptr(), out.data_ptr(), M)
+    _launch("to_niels_xy_rows", "launch_to_niels_xy_rows", xy_be.device, xy_be.data_ptr(),
+            out.data_ptr(), M)
     return out
 
 
@@ -145,7 +151,7 @@ def to_niels(pts: torch.Tensor) -> torch.Tensor:
     if not _on_card("to_niels", pts):
         return to_niels_plain(pts)
     out = torch.empty_like(pts)
-    _launch("to_niels", "launch_to_niels", pts.data_ptr(), out.data_ptr(), W)
+    _launch("to_niels", "launch_to_niels", pts.device, pts.data_ptr(), out.data_ptr(), W)
     return out
 
 
@@ -201,11 +207,12 @@ def accumulate_scan(pts: torch.Tensor, ids: torch.Tensor, use_mma: bool = False)
     if use_mma:
         m1, m2 = field_kernels_mma.const_inputs(dev)
         _launch(
-            "accumulate_scan_mma", "launch_accumulate_scan_mma", pts.data_ptr(),
+            "accumulate_scan_mma", "launch_accumulate_scan_mma", pts.device, pts.data_ptr(),
             ids.data_ptr(), m1.data_ptr(), m2.data_ptr(), *outs,
         )
     else:
-        _launch("accumulate_scan", "launch_accumulate_scan", pts.data_ptr(), ids.data_ptr(), *outs)
+        _launch("accumulate_scan", "launch_accumulate_scan", pts.device, pts.data_ptr(),
+                ids.data_ptr(), *outs)
     return final_acc, final_id, staged
 
 
@@ -255,7 +262,7 @@ def accumulate_scan_gather(rows: torch.Tensor, perm: torch.Tensor, ids: torch.Te
     final_acc = torch.empty((4, 16, W), dtype=torch.int32, device=dev)
     final_id = torch.empty((W,), dtype=torch.int32, device=dev)
     _launch(
-        "accumulate_scan_gather", "launch_accumulate_scan_gather", rows.data_ptr(),
+        "accumulate_scan_gather", "launch_accumulate_scan_gather", rows.device, rows.data_ptr(),
         perm.data_ptr(), ids.data_ptr(), partial.data_ptr(), final_acc.data_ptr(),
         final_id.data_ptr(), L, W, W // n_windows, n_buckets,
     )
@@ -278,8 +285,8 @@ def padd_masked(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor) -> torch.T
         return padd_masked_plain(a, b, mask)
     out = torch.empty_like(a)
     _launch(
-        "padd_masked", "launch_padd_masked", a.data_ptr(), b.data_ptr(), mask.data_ptr(),
-        out.data_ptr(), W,
+        "padd_masked", "launch_padd_masked", a.device, a.data_ptr(), b.data_ptr(),
+        mask.data_ptr(), out.data_ptr(), W,
     )
     return out
 
@@ -298,7 +305,7 @@ def padd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if not _on_card("padd", a, b):
         return padd_plain(a, b)
     out = torch.empty_like(a)
-    _launch("padd", "launch_padd", a.data_ptr(), b.data_ptr(), out.data_ptr(), W)
+    _launch("padd", "launch_padd", a.device, a.data_ptr(), b.data_ptr(), out.data_ptr(), W)
     return out
 
 
@@ -337,8 +344,8 @@ def lane_scan(final_acc: torch.Tensor, final_id: torch.Tensor, n_windows: int) -
     out = torch.empty_like(final_acc)
     scratch = torch.empty_like(final_acc)
     _launch(
-        "lane_scan", "launch_lane_scan", final_acc.data_ptr(), final_id.data_ptr(),
-        out.data_ptr(), scratch.data_ptr(), n_windows, W // n_windows,
+        "lane_scan", "launch_lane_scan", final_acc.device, final_acc.data_ptr(),
+        final_id.data_ptr(), out.data_ptr(), scratch.data_ptr(), n_windows, W // n_windows,
     )
     return out
 
@@ -383,8 +390,9 @@ def assemble_buckets(partial: torch.Tensor, carries: torch.Tensor, hist: torch.T
         return assemble_buckets_plain(partial, carries, hist, e_pos, chunk_len, carry)
     out = torch.empty_like(partial)
     _launch(
-        "assemble_buckets", "launch_assemble_buckets", partial.data_ptr(), carries.data_ptr(),
-        hist.data_ptr(), e_pos.data_ptr(), None if carry is None else carry.data_ptr(),
+        "assemble_buckets", "launch_assemble_buckets", partial.device, partial.data_ptr(),
+        carries.data_ptr(), hist.data_ptr(), e_pos.data_ptr(),
+        None if carry is None else carry.data_ptr(),
         out.data_ptr(), K, B, W // K, chunk_len,
     )
     return out
@@ -465,7 +473,7 @@ def grouped_running_sum(s: torch.Tensor):
     T = torch.empty((4, 16, W), dtype=torch.int32, device=s.device)
     U = torch.empty_like(T)
     _launch(
-        "grouped_running_sum", "launch_grouped_running_sum", s.data_ptr(), T.data_ptr(),
+        "grouped_running_sum", "launch_grouped_running_sum", s.device, s.data_ptr(), T.data_ptr(),
         U.data_ptr(), Gs, W, _group_plan(Gs, W, GROUP_THREADS)[0],
     )
     return T, U
@@ -498,7 +506,8 @@ def reduce_finish(T: torch.Tensor, U: torch.Tensor, n_windows: int, doublings: i
     plain = torch.empty((4, 16, K), dtype=torch.int32, device=T.device)
     mont = torch.empty_like(plain)
     _launch(
-        "reduce_finish", "launch_reduce_finish", T.data_ptr(), U.data_ptr(), plain.data_ptr(),
-        mont.data_ptr(), W // K, K, _group_plan(W // K, 2 * K, FINISH_THREADS)[0], doublings,
+        "reduce_finish", "launch_reduce_finish", T.device, T.data_ptr(), U.data_ptr(),
+        plain.data_ptr(), mont.data_ptr(), W // K, K, _group_plan(W // K, 2 * K, FINISH_THREADS)[0],
+        doublings,
     )
     return plain, mont

@@ -23,7 +23,8 @@ The counterpart of the JAX package's `ops/pippenger.py`:
    `accumulate_and_reduce` (and its JAX name `msm_window_sums`) is 2 then 3
    over points already on the device.
 4. `_tree_sum_axis`: a log-depth group sum over a trailing axis, one
-   `padd_masked` launch a level (the naive engine's sum of its products).
+   `padd_masked` launch a level (the naive engine's sum of its products,
+   and the tree combine of `parallel/msm_sharded.py`).
 
 Point planes travel as int32 tensors of u32 bits; ids, digits and
 positions are int64. Every point kernel goes through `ops/kernels`, which
@@ -234,23 +235,27 @@ msm_window_sums = accumulate_and_reduce
 
 
 def _tree_sum_axis(st: torch.Tensor) -> torch.Tensor:
-    """Group sum over the trailing axis in log depth: [4, 16, K, G] int64
-    Montgomery points -> [4, 16, K] int64, for any G.
+    """Group sum over the trailing axis in log depth: [4, 16, *batch, G]
+    Montgomery points -> [4, 16, *batch], for any G; int32 planes (u32
+    bits) give int32, int64 values give int64.
 
     The JAX package's roll loop: at level d = 1, 2, 4, ... < G, lane g
     becomes cur[g] + cur[g + d] where g + d < G (`padd_masked`, its own
     value first), so lane 0 ends with the sum; the same adds in the same
     order give the JAX digits. One `padd_masked` launch a level on the card.
+    The naive engine sums its products with it, and the multi-GPU layer's
+    `tree_add_points` its shards' partial sums.
     """
     G = st.shape[-1]
     if G == 1:
         return st[..., 0]
     shape = st.shape
-    lane = torch.arange(G, device=st.device).expand(shape[-2], G)
-    cur = limbs.as_i32(st).reshape(4, 16, -1)
+    lane = torch.arange(G, device=st.device).expand(shape[2:])
+    cur = (st if st.dtype == torch.int32 else limbs.as_i32(st)).reshape(4, 16, -1).contiguous()
     for i in range((G - 1).bit_length()):
         d = 1 << i
         shifted = torch.roll(cur.reshape(shape), -d, dims=-1).reshape(cur.shape)
         mask = (lane + d < G).to(torch.int32).reshape(-1)
         cur = pk.padd_masked(cur, shifted, mask)
-    return limbs.as_i64(cur).reshape(shape)[..., 0]
+    out = cur.reshape(shape)[..., 0]
+    return out if st.dtype == torch.int32 else limbs.as_i64(out)
