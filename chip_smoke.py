@@ -23,10 +23,11 @@
    groups a window): rows labelled "[resident 2^20]".
 4. Drives every path with the launch counts set to 0 just before and read
    just after; each path names the kernels it must and must not launch:
-   - the wire `compute_msm` on the pinned 2^16 and 2^20 inputs (regenerated
-     from their seeds), cold and warm, with a profile of the warm call and
-     its host dispatch time (the host's clock until `_dispatch_wire` has
-     queued the whole call, without a sync);
+   - the wire `compute_msm` on the pinned 2^16-2^20 inputs (each power
+     regenerated from its seeds, the host's time printed), each against
+     its `PINNED` result, and at 2^20 cold and warm, with a profile of the
+     warm call and its host dispatch time (the host's clock until
+     `_dispatch_wire` has queued the whole call, without a sync);
    - the planes path: `compute_msm` on the same 2^20 points and scalars as
      lists of `ExtPoint`s and ints (host marshalling timed apart);
    - `device_affine`: the 2^20 wire call with the affine finish on the card;
@@ -37,6 +38,10 @@
    - `compute_msm` at 2^16 with every scalar equal to one s, against the
      oracle's s * (sum of the points): every window is one bucket over all
      its lanes, so every level of the lane scan adds;
+   - a fixture round trip: `distinct_case(4096, seed=11)` written with
+     `save_test_case`, read back with `load_test_case` (its expected
+     result recomputed by the oracle) and run through the wire
+     `compute_msm`, against the case's expected result;
    - the A/B path of the tensor-core scan: the CIOS scan and the
      tensor-core scan at the production shape, in turns, required equal;
    - the hybrid engine on the 2^20 wire input at `cpu_work_ratio` 0.2
@@ -59,6 +64,17 @@
      no synchronizing call before the finish (PyTorch's sync check), a
      profile and the peak device memory; `msm_window_sums` on the same
      points gives the same window sums as points;
+   - the bucket reduction at every group size at the resident shape: the
+     2^20 pinned input's bucket sums after one `accumulate_buckets` (w 16
+     signed, K 16, B 32 800) through `reduce_and_finish(group_size=Gs)` for
+     Gs 1, 2, 4, 8, 16 and 32, each giving `PINNED[20]` and the same affine
+     window sums, Gs 1 with 2 * ceil(log2 B) = 32 `padd_masked` launches
+     (the suffix scan) and no grouped kernel, every other Gs with one
+     `grouped_running_sum` and one `reduce_finish`, first and warm wall;
+     the Gs 1 path against the same levels on `padd_masked`'s plain
+     version, and `padd_masked` at the suffix scan's shape and the Gs 4
+     kernels held against their plain versions (rows "[suffix scan
+     2^20]" and "[reduce Gs 4 2^20]");
    - the multi-GPU layer (`parallel/`) at 2^20 on the same points, w 16
      signed: one NCCL rank (`distributed.init` with world size 1 on a local
      coordinator, `global_mesh`, `msm_window_sums_sharded` with one shard of
@@ -103,6 +119,7 @@ import shutil
 import socket
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -127,6 +144,9 @@ RESIDENT_KERNELS = ("to_niels", "accumulate_scan_gather", "lane_scan", "assemble
                     "grouped_running_sum", "reduce_finish")
 RESIDENT = " [resident 2^20]"  # the label of the kernel rows at the resident path's shapes
 SHARDED = " [sharded 2^20]"  # the label of the tree combine's row at the sharded path's shape
+SUFFIX = " [suffix scan 2^20]"  # padd_masked at the suffix scan's shape (Gs 1, resident buckets)
+GS4 = " [reduce Gs 4 2^20]"  # the grouped kernels at Gs 4 over the resident buckets
+REDUCE_GROUP_SIZES = (1, 2, 4, 8, 16, 32)
 MAD_PROBE = """
 #include <cuda_runtime.h>
 // Eight independent mad.lo.u32 chains a thread: nothing but multiply issue.
@@ -558,7 +578,7 @@ def main() -> int:
     from webgpu_msm_tpu_torch import MSMConfig, MSMPlan, api, benchmark, compute_msm, compute_msm_batch
     from webgpu_msm_tpu_torch.config import SUPPORTED_WINDOW_SIZES
     from webgpu_msm_tpu_torch.engines import baseline_engine, cpu_engine, gpu_engine, naive_engine
-    from webgpu_msm_tpu_torch.ops import pippenger
+    from webgpu_msm_tpu_torch.ops import limbs, pippenger
     from webgpu_msm_tpu_torch.ops.kernels import build
     from webgpu_msm_tpu_torch.runtime import build as native_build
     from webgpu_msm_tpu_torch.ops.kernels import padd_kernels as pk
@@ -693,7 +713,7 @@ def main() -> int:
     affine_of = lambda out, w: ocurve.to_affine(combine_windows(
         gpu_engine.window_sums_to_points(out.cpu().numpy()), w))
     inputs = {}
-    for power in (16, 20):
+    for power in sorted(PINNED):
         t0 = time.perf_counter()
         n = 1 << power
         points = fixtures.distinct_points_fast(n, seed=power)
@@ -709,8 +729,8 @@ def main() -> int:
         _, n_chunks, chunk_len = cfg.resolved_wire_plan(n)
         return -(-n // (n_chunks * chunk_len))
 
-    # 4a. the wire path
-    for power in (16, 20):
+    # 4a. the wire path, at every pinned power
+    for power in sorted(PINNED):
         _, _, pw, sw = inputs[power]
         wire = lambda: compute_msm(pw, sw, config=cfg, device=dev)
         res, cold_ms, counts = drive(f"wire 2^{power}", pk, wire, WIRE_KERNELS, others(*WIRE_KERNELS),
@@ -732,6 +752,9 @@ def main() -> int:
                   f"device busy {busy_ms:.2f} ms, {n_launches} device launches [{smi}]")
             print("compute_msm 2^20 warm host dispatch by step: "
                   + ", ".join(f"{k} {v:.1f} ms" for k, v in split.items()))
+    for power in sorted(PINNED):  # the later phases run 2^16 and 2^20 only
+        if power not in (16, 20):
+            del inputs[power]
 
     # 4b. the planes path: the same input as lists of ExtPoints and ints
     t0 = time.perf_counter()
@@ -811,6 +834,29 @@ def main() -> int:
     check(as_xy(res) == want, "equal scalars 2^16: result differs from the oracle's s * sum(P)")
     print(f"equal scalars 2^16: equals the oracle's s * sum(P) (oracle {oracle_s:.1f} s on the host); "
           f"{ms / 1e3:.3f} s; launches {counts} [{smi}]")
+
+    # 4f'. a fixture round trip: a distinct-point case written in the
+    # reference's text format, read back (its expected result recomputed by
+    # the port's oracle at w 13), and the wire compute_msm on what was read
+    t0 = time.perf_counter()
+    case = fixtures.distinct_case(4096, seed=11)
+    made_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        paths = (os.path.join(tmp, "points.txt"), os.path.join(tmp, "scalars.txt"))
+        fixtures.save_test_case(case, *paths)
+        t0 = time.perf_counter()
+        loaded = fixtures.load_test_case(*paths)
+        load_s = time.perf_counter() - t0
+    check((loaded.points, loaded.scalars, loaded.expected) == (case.points, case.scalars, case.expected),
+          "fixture round trip: the case read back differs from the case written")
+    n_case = len(loaded.points)
+    pw_case, sw_case = fixtures.wire_points(loaded.points), convert.bigints_to_u32_be(loaded.scalars)
+    res, ms, counts = drive("fixture round trip 4096", pk, lambda: compute_msm(pw_case, sw_case, config=cfg, device=dev),
+                            WIRE_KERNELS, others(*WIRE_KERNELS), n_batches(n_case), n_batches(n_case))
+    check(as_xy(res) == case.expected, "fixture round trip: compute_msm differs from case.expected")
+    print(f"fixture round trip: distinct_case(4096, seed=11) made in {made_s:.1f} s, written and read back "
+          f"({load_s:.1f} s with the oracle's expected), compute_msm equals case.expected; {ms / 1e3:.3f} s; "
+          f"launches {counts} [{smi}]")
 
     # 4g. the A/B path of the dense scans (the TPU kernel's contract, with
     # `staged`): no compute_msm path selects them; their entry point is this
@@ -996,6 +1042,70 @@ def main() -> int:
           f"launches {counts} [{smi}]")
     del out, mont
     print(f"phase resident: {time.perf_counter() - t_resident:.1f} s")
+
+    # 4o'. the bucket reduction at every group size, at the resident shape:
+    # the same points' bucket sums after one accumulate_buckets (w 16 signed,
+    # K 16, B 32 800), reduced at Gs 1 (the suffix scan, padd_masked once a
+    # level on plain torch.rolls, then a plain from_mont) and at Gs 2-32
+    # (grouped_running_sum, then reduce_finish with log2(Gs) doublings)
+    t_reduce = time.perf_counter()
+    bs = pippenger.accumulate_buckets(pk.to_niels(pts_t), limbs.as_i64(sc_t), window_size=w_res,
+                                      n_chunks=C_res, chunk_len=L_res, signed_digits=signed)
+    K_red, B_red = bs.shape[-2:]
+    check((K_red, B_red) == (16, 32800), f"resident bucket sums: K {K_red}, B {B_red}")
+    suffix_levels = (B_red - 1).bit_length()
+    reduce_counts, reduce_walls, first_sums = {}, {}, None
+    for Gs in REDUCE_GROUP_SIZES:
+        want_counts = ({"padd_masked": 2 * suffix_levels} if Gs == 1
+                       else {"grouped_running_sum": 1, "reduce_finish": 1})
+        call = lambda: pippenger.reduce_and_finish(bs, group_size=Gs)
+        (plain_ws, mont_ws), first_ms, counts = drive(f"reduce Gs {Gs} 2^20", pk, call, tuple(want_counts),
+                                                      others(*want_counts))
+        check(all(counts[k] == want_counts.get(k, 0) for k in pk.KERNELS),
+              f"reduce Gs {Gs} 2^20: launches {counts}, not {want_counts}")
+        sums = affine_from_planes(plain_ws.cpu().numpy(), mont=False)
+        check(affine_from_planes(mont_ws.cpu().numpy()) == sums, f"reduce Gs {Gs}: the two outputs differ")
+        first_sums = first_sums or sums
+        check(sums == first_sums, f"reduce Gs {Gs}: window sums differ from Gs 1's as points")
+        check(affine_of(plain_ws, w_res) == PINNED[20], f"reduce Gs {Gs} 2^20: result differs from PINNED")
+        (plain_ws, _), warm_ms = once_ms(call)
+        check(affine_of(plain_ws, w_res) == PINNED[20], f"reduce Gs {Gs} 2^20: warm result differs from PINNED")
+        reduce_counts[Gs], reduce_walls[Gs] = counts, (first_ms, warm_ms)
+        print(f"reduce Gs {Gs} 2^20: equals PINNED[20], window sums equal Gs 1's as points; launches "
+              f"{ {k: v for k, v in counts.items() if v} }; wall first {first_ms:.3f} ms, warm {warm_ms:.3f} ms"
+              + (" (the plain torch.rolls and from_mont included)" if Gs == 1 else "") + f" [{smi}]")
+    # The Gs 1 path against the same levels on padd_masked's plain version.
+    real_padd_masked = pk.padd_masked
+    pk.padd_masked = pk.padd_masked_plain
+    try:
+        want_path, plain_path_ms = once_ms(lambda: pippenger._suffix_weighted(bs))
+    finally:
+        pk.padd_masked = real_padd_masked
+    got_path, path_ms = once_ms(lambda: pippenger._suffix_weighted(bs))
+    check(max_abs_err(got_path, want_path) == 0, "the suffix scan differs from its plain version")
+    print(f"suffix scan 2^20 ({2 * suffix_levels} levels over {K_red * B_red} lanes): equal to its plain "
+          f"version digit for digit; {path_ms:.3f} ms (plain {plain_path_ms:.1f} ms) [{smi}]")
+    del got_path, want_path
+    # padd_masked at the suffix scan's shape (level d 1), and the Gs 4 kernels.
+    flat = bs.reshape(4, 16, -1)
+    lane = torch.arange(B_red, device=dev).expand(K_red, B_red).reshape(-1)
+    level1 = (flat, torch.roll(bs, -1, dims=-1).reshape(flat.shape), (lane + 1 < B_red).to(torch.int32))
+    kern, plain, replaces, source, reps = kernels["padd_masked"]
+    suffix_row = hold("padd_masked", kern, plain, level1, reps, ops_per_s, replaces, source, smi, SUFFIX)
+    suffix_row["launches"] = reduce_counts[1]["padd_masked"]
+    del level1, lane
+    s4 = bs.reshape(4, 16, K_red * B_red // 4, 4).permute(3, 0, 1, 2).contiguous()
+    gs4_rows = {}
+    for kname, args in (("grouped_running_sum", lambda: (s4,)),
+                        ("reduce_finish", lambda: (*pk.grouped_running_sum(s4), K_red, 2))):
+        kern, plain, replaces, source, reps = kernels[kname]
+        gs4_rows[kname] = hold(kname, kern, plain, args(), reps, ops_per_s, replaces, source, smi, GS4)
+        gs4_rows[kname]["launches"] = reduce_counts[4][kname]
+    del bs, flat, s4
+    torch.cuda.empty_cache()
+    print("reduce 2^20 walls by Gs (first, warm ms): "
+          + ", ".join(f"Gs {g} {a:.3f}, {b:.3f}" for g, (a, b) in reduce_walls.items()) + f" [{smi}]")
+    print(f"phase reduce: {time.perf_counter() - t_reduce:.1f} s")
 
     # 4p. the multi-GPU layer at 2^20 on the same points and scalars, w 16
     # signed (the resident rule): one NCCL rank (world size 1) and its
@@ -1183,9 +1293,11 @@ def main() -> int:
     # 5. summary lines
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the builds included")
     print("kernels: " + ", ".join(pk.KERNELS) + "; at the resident shapes: " + ", ".join(RESIDENT_KERNELS)
-          + "; at the sharded tree's shape: padd_masked")
+          + "; at the sharded tree's shape: padd_masked; at the suffix scan's shape: padd_masked; "
+          + "at Gs 4: " + ", ".join(gs4_rows))
     print(json.dumps({"kernels": [rows[k] for k in pk.KERNELS]
-                      + [resident_rows[k] for k in RESIDENT_KERNELS] + [sharded_row]}))
+                      + [resident_rows[k] for k in RESIDENT_KERNELS] + [sharded_row, suffix_row]
+                      + list(gs4_rows.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
     return 0
 

@@ -19,7 +19,8 @@ from webgpu_msm_tpu_torch.ops import pippenger
 from webgpu_msm_tpu_torch.ops.kernels import padd_kernels as pk
 from webgpu_msm_tpu_torch.oracle import curve, msm
 from webgpu_msm_tpu_torch.utils import convert, fixtures
-from webgpu_msm_tpu_torch.utils.interop import affine_from_planes, planes_from_numpy, planes_to_numpy
+from webgpu_msm_tpu_torch.utils.interop import (affine_from_planes, mont_planes_from_points, planes_from_numpy,
+                                               planes_to_numpy)
 
 pytestmark = pytest.mark.gpu
 
@@ -383,3 +384,36 @@ def test_padd_masked_at_the_tree_combine_shape_on_card(cuda, D):
         assert torch.equal(got, pk.padd_masked_plain(a, b, mask))
         a = got
     assert torch.equal(tree_add_points(st), a.reshape(4, 16, 32, 160, D)[..., 0])
+
+
+@pytest.mark.parametrize("B", [40, 4128])
+def test_suffix_weighted_matches_plain_on_card(cuda, B):
+    """The suffix scan of `reduce_buckets(group_size=1)` on the card, one
+    `padd_masked` launch a level (2 * ceil(log2 B)), against the same
+    function on the CPU (the plain versions), digit for digit."""
+    K = 3
+    bs = planes_from_numpy(rand_planes(np.random.default_rng(B), (4,), K * B)).reshape(4, 16, K, B)
+    pk.reset_launch_counts()
+    got = pippenger._suffix_weighted(bs.to(cuda))
+    assert pk.launches == {k: 2 * (B - 1).bit_length() if k == "padd_masked" else 0 for k in pk.KERNELS}
+    assert torch.equal(got.cpu(), pippenger._suffix_weighted(bs))
+
+
+@pytest.mark.parametrize("Gs", [1, 4])
+def test_reduce_and_finish_group_sizes_on_card(cuda, Gs):
+    """`reduce_and_finish(group_size=Gs)` on real bucket sums (K 4, B 2048)
+    gives the Gs 32 window sums as points, in both outputs, with the
+    launches of its form, and the oracle's running sums."""
+    K, B = 4, 2048
+    pts = fixtures.distinct_points_fast(K * B, seed=61)
+    bs = planes_from_numpy(mont_planes_from_points(pts), cuda).reshape(4, 16, K, B)
+    want = affine_from_planes(planes_to_numpy(pippenger.reduce_and_finish(bs, group_size=32)[1]))
+    pk.reset_launch_counts()
+    plain, mont = pippenger.reduce_and_finish(bs, group_size=Gs)
+    counts = ({"padd_masked": 2 * (B - 1).bit_length()} if Gs == 1
+              else {"grouped_running_sum": 1, "reduce_finish": 1})
+    assert pk.launches == {k: counts.get(k, 0) for k in pk.KERNELS}
+    assert affine_from_planes(planes_to_numpy(mont)) == want
+    assert affine_from_planes(planes_to_numpy(plain), mont=False) == want
+    sums = [msm.bucket_reduce(pts[k * B : (k + 1) * B]) for k in range(K)]
+    assert want == [curve.to_affine(s) for s in sums]

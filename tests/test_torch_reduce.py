@@ -1,11 +1,13 @@
-"""The port's grouped bucket reduction against the JAX package's.
+"""The port's bucket reduction against the JAX package's, at every group size.
 
-The port always runs the grouped form (`grouped_running_sum` over each
-group, then `reduce_finish` over the groups with the doublings, the add and
+Gs > 1 runs the grouped form (`grouped_running_sum` over each group, then
+`reduce_finish` over the groups with the doublings, the add and
 `from_mont`), adding in the order of its kernels' tree; the JAX package's
 grouped CPU fallback adds in another order, so window sums are compared as
-affine points, and against the oracle's running sum. The JAX function runs op by op under
-`jax.disable_jit()`: its XLA:CPU compile takes minutes at any shape.
+affine points, and against the oracle's running sum. Gs 1 runs the suffix
+scan `_suffix_weighted` in the JAX order, so it matches digit for digit.
+The JAX functions run op by op under `jax.disable_jit()`: their XLA:CPU
+compile takes minutes at any shape.
 """
 import jax
 import jax.numpy as jnp
@@ -16,6 +18,7 @@ import torch
 from webgpu_msm_tpu.ops import pippenger as jpip
 from webgpu_msm_tpu.oracle import curve as oc
 from webgpu_msm_tpu.oracle import field as F
+from webgpu_msm_tpu.oracle import msm as omsm
 from webgpu_msm_tpu.utils import fixtures
 
 from webgpu_msm_tpu_torch.ops import field_ops, pippenger
@@ -48,6 +51,11 @@ def _affine(st) -> list:
     ]
 
 
+def _running_sums(pts, n_buckets) -> list:
+    """The oracle's sum_b b * S_b of each window of `pts` ([K * n_buckets])."""
+    return [oc.to_affine(omsm.bucket_reduce(pts[k * n_buckets : (k + 1) * n_buckets])) for k in range(K)]
+
+
 @pytest.fixture(scope="module")
 def buckets():
     pts = fixtures.distinct_points_fast(K * B, seed=97)
@@ -69,12 +77,7 @@ def test_grouped_reduce_matches_jax_and_oracle(buckets, jax_window_sums):
     assert pippenger.group_size(B) == 16
     got = _affine(planes_to_numpy(pippenger.reduce_buckets(planes_from_numpy(bs))))
     assert got == _affine(jax_window_sums)
-    for k in range(K):  # sum_b b * S_b by the serial running sum
-        total = carry = oc.IDENTITY
-        for b in range(B - 1, 0, -1):
-            carry = oc.add(carry, pts[k * B + b])
-            total = oc.add(total, carry)
-        assert got[k] == oc.to_affine(total)
+    assert got == _running_sums(pts, B)  # sum_b b * S_b by the serial running sum
 
 
 @pytest.mark.parametrize("Gs", [16, 8, 4])
@@ -103,3 +106,82 @@ def test_reduce_and_finish_outputs_agree(buckets):
     want = torch.stack([field_ops.from_mont(mont[c].to(torch.int64)) for c in range(4)])
     assert torch.equal(plain.to(torch.int64), want)
     assert torch.equal(pippenger.reduce_buckets(bs), mont.to(torch.int64))
+
+
+B_RAGGED = 40  # not a power of two: the rolls wrap and the masks cut
+
+
+@pytest.fixture(scope="module")
+def ragged_buckets():
+    pts = fixtures.distinct_points_fast(K * B_RAGGED, seed=98)
+    pts[3], pts[B_RAGGED + 39] = oc.IDENTITY, oc.IDENTITY
+    return pts, _planes(pts).reshape(4, 16, K, B_RAGGED)
+
+
+@pytest.fixture(scope="module")
+def jax_reduce(buckets, ragged_buckets, jax_window_sums):
+    """Gs -> the JAX package's window sums [4, 16, K] (Montgomery): Gs 1 its
+    `_suffix_weighted` over the ragged buckets (what its `reduce_buckets`
+    returns at Gs 1), other Gs its `reduce_buckets(group_size=Gs)` over
+    `buckets`; computed once each, on first use."""
+    cache = {4: jax_window_sums}
+
+    def get(Gs):
+        if Gs not in cache:
+            with jax.disable_jit():
+                if Gs == 1:
+                    cache[Gs] = np.asarray(jpip._suffix_weighted(jnp.asarray(ragged_buckets[1])))
+                else:
+                    cache[Gs] = np.asarray(jpip.reduce_buckets(jnp.asarray(buckets[1]), group_size=Gs))
+        return cache[Gs]
+
+    return get
+
+
+@pytest.mark.parametrize("Gs", [1, 2, 4, 16])
+def test_reduce_buckets_group_size_matches_jax(buckets, ragged_buckets, jax_reduce, Gs):
+    """Gs 1 digit for digit against the JAX suffix scan (B 40); Gs 2, 4 and
+    16 as points against `jpip.reduce_buckets(group_size=Gs)` (B 64), and
+    every Gs against the oracle's running sum."""
+    pts, bs = ragged_buckets if Gs == 1 else buckets
+    got = pippenger.reduce_buckets(planes_from_numpy(bs), group_size=Gs)
+    assert got.dtype == torch.int64 and got.shape == (4, 16, K)
+    want = jax_reduce(Gs)
+    if Gs == 1:
+        np.testing.assert_array_equal(planes_to_numpy(got), want)
+    assert _affine(planes_to_numpy(got)) == _affine(want) == _running_sums(pts, bs.shape[-1])
+
+
+def test_suffix_weighted_matches_jax_digit_for_digit(ragged_buckets, jax_reduce):
+    """The suffix scan alone, int32 in and out, over a batch of K windows."""
+    got = pippenger._suffix_weighted(planes_from_numpy(ragged_buckets[1]))
+    assert got.dtype == torch.int32 and got.shape == (4, 16, K) and got.is_contiguous()
+    np.testing.assert_array_equal(planes_to_numpy(got), jax_reduce(1))
+
+
+@pytest.mark.parametrize("n_buckets,rule", [(B_RAGGED, 1), (B, 16)])
+def test_default_group_size_is_the_tpu_rule(buckets, ragged_buckets, n_buckets, rule):
+    """group_size 0 takes `group_size(B)` (1 below 64 buckets, which used to
+    raise), digit for digit, in both outputs of `reduce_and_finish`."""
+    bs = planes_from_numpy((ragged_buckets if n_buckets == B_RAGGED else buckets)[1])
+    assert pippenger.group_size(n_buckets) == rule
+    default = pippenger.reduce_and_finish(bs)
+    explicit = pippenger.reduce_and_finish(bs, group_size=rule)
+    for a, b in zip(default, explicit):
+        assert a.dtype == torch.int32 and torch.equal(a, b)
+    plain, mont = default
+    want = torch.stack([field_ops.from_mont(mont[c].to(torch.int64)) for c in range(4)])
+    assert torch.equal(plain.to(torch.int64), want)
+    assert torch.equal(pippenger.reduce_buckets(bs), mont.to(torch.int64))
+
+
+@pytest.mark.parametrize("n_buckets,Gs", [(B, 3), (B, 6), (B, 128), (B_RAGGED, 16)])
+def test_group_size_must_be_a_power_of_two_dividing_b(buckets, ragged_buckets, n_buckets, Gs):
+    """A difference kept on purpose: the JAX function asserts only that Gs
+    divides B, and at Gs 3 doubles once (log2 rounded down) into a wrong
+    sum; the port raises for any Gs that is not a power of two dividing B."""
+    bs = planes_from_numpy((ragged_buckets if n_buckets == B_RAGGED else buckets)[1])
+    with pytest.raises(ValueError, match="power of two dividing"):
+        pippenger.reduce_buckets(bs, group_size=Gs)
+    with pytest.raises(ValueError, match="power of two dividing"):
+        pippenger.reduce_and_finish(bs, group_size=Gs)

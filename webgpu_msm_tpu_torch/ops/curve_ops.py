@@ -118,3 +118,13 @@ def double(p: PointVec) -> PointVec:
 def select(mask: torch.Tensor, a: PointVec, b: PointVec) -> PointVec:
     """Per-lane: mask ? a : b."""
     return PointVec(*(limbs.select(mask, u, v) for u, v in zip(a, b)))
+
+
+def to_mont(p: PointVec) -> PointVec:
+    """Each coordinate a -> a*R mod p."""
+    return PointVec(*(field_ops.to_mont(c) for c in p))
+
+
+def from_mont(p: PointVec) -> PointVec:
+    """Each coordinate a*R -> a mod p."""
+    return PointVec(*(field_ops.from_mont(c) for c in p))

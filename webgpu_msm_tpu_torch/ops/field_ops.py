@@ -23,8 +23,7 @@ _N0 = int(N0_INV_16)
 
 def _cond_sub_p(a: torch.Tensor) -> torch.Tensor:
     """a in [0, 2p) -> a mod p."""
-    p = limbs.const_planes(P, a.dim() - 1, a.device)
-    d, borrow = limbs.sub_with_borrow(a, p.expand_as(a))
+    d, borrow = limbs.sub_const_with_borrow(a, P)
     return limbs.select(borrow == 1, a, d)
 
 
@@ -38,6 +37,10 @@ def field_sub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     d, borrow = limbs.sub_with_borrow(a, b)
     p = limbs.const_planes(P, d.dim() - 1, d.device)
     return limbs.select(borrow == 1, limbs.add_no_reduce(d, p.expand_as(d)), d)
+
+
+def field_double(a: torch.Tensor) -> torch.Tensor:
+    return field_add(a, a)
 
 
 def field_neg(a: torch.Tensor) -> torch.Tensor:

@@ -59,6 +59,21 @@ def from_words_le(words: torch.Tensor) -> torch.Tensor:
     )
 
 
+def to_words_le(digits: torch.Tensor) -> torch.Tensor:
+    """[16, *S] digit planes -> [8, *S] little-endian u32 words (int64)."""
+    return digits[0::2] | (digits[1::2] << DIGIT_BITS)
+
+
+def stack(digits) -> torch.Tensor:
+    """A sequence of 16 digit planes -> one [16, *S] tensor."""
+    return torch.stack(list(digits))
+
+
+def unstack(arr: torch.Tensor) -> list[torch.Tensor]:
+    """[16, *S] -> the list of its 16 digit planes."""
+    return list(arr.unbind(0))
+
+
 def add_no_reduce(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(a + b) mod 2^256 with carry propagation."""
     out, carry = [], 0
@@ -77,6 +92,12 @@ def sub_with_borrow(a: torch.Tensor, b: torch.Tensor):
         out.append(d & DIGIT_MASK)
         borrow = (d >> DIGIT_BITS) & 1
     return torch.stack(out), borrow
+
+
+def sub_const_with_borrow(a: torch.Tensor, c: int):
+    """((a - c) mod 2^256, borrow) for a python-int constant c, with borrow
+    1 where a < c."""
+    return sub_with_borrow(a, const_planes(c, a.dim() - 1, a.device).expand_as(a))
 
 
 def propagate_carries(cols: torch.Tensor) -> torch.Tensor:

@@ -13,15 +13,16 @@ The counterpart of the JAX package's `ops/pippenger.py`:
    in-lane partial sum), the `lane_scan` kernel (the segmented scan over
    lanes), a bucket histogram, and the `assemble_buckets` kernel (bucket
    assembly and the carry add in one launch).
-3. `reduce_and_finish`: the grouped running sum (`grouped_running_sum`
-   over the buckets of each group), then `reduce_finish` over the groups,
-   which also doubles log2(Gs) times, adds and leaves the Montgomery
-   domain. `reduce_buckets` is its Montgomery-domain output. Gs is 16 or
-   32 for every supported window (B is a multiple of 32 and at least 160),
-   so the JAX package's other reductions (`reduce_buckets(group_size=)`,
-   the suffix scan `_suffix_weighted`) have no counterpart here.
-   `accumulate_and_reduce` (and its JAX name `msm_window_sums`) is 2 then 3
-   over points already on the device.
+3. `reduce_and_finish(bucket_sums, group_size=0)`: for Gs > 1 the grouped
+   running sum (`grouped_running_sum` over the buckets of each group),
+   then `reduce_finish` over the groups, which also doubles log2(Gs)
+   times, adds and leaves the Montgomery domain; for Gs 1 the log-depth
+   suffix scan `_suffix_weighted` (one `padd_masked` launch a level) and
+   a plain `from_mont`. `reduce_buckets` is its Montgomery-domain output.
+   Gs 0 takes the JAX package's TPU rule (`group_size`): 16 or 32 for
+   every supported window, 1 below 64 buckets. `accumulate_and_reduce`
+   (and its JAX name `msm_window_sums`) is 2 then 3 over points already
+   on the device.
 4. `_tree_sum_axis`: a log-depth group sum over a trailing axis, one
    `padd_masked` launch a level (the naive engine's sum of its products,
    and the tree combine of `parallel/msm_sharded.py`).
@@ -35,7 +36,7 @@ from __future__ import annotations
 
 import torch
 
-from . import limbs, windows
+from . import field_ops, limbs, windows
 from .kernels import padd_kernels as pk
 from .kernels.padd_kernels import pack_rows  # the scan's row layout, [3, 16, M] -> [M, 24]
 
@@ -179,11 +180,24 @@ def group_size(n_buckets: int) -> int:
     return 32 if n_buckets >= 1024 else (16 if n_buckets >= 64 else 1)
 
 
-def reduce_and_finish(bucket_sums: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Bucket reduction W_k = sum_b b * S_b -> window sums [4, 16, K] int32,
-    (plain domain, Montgomery domain).
+def _resolved_group_size(n_buckets: int, gs: int) -> int:
+    """Gs for `reduce_and_finish`: 0 (or less) takes the TPU rule; any other
+    Gs must be a power of two that divides B. (The JAX function asserts
+    only the divisor: at Gs 3 it doubles once and returns a wrong sum.)"""
+    if gs <= 0:
+        gs = group_size(n_buckets)
+    if gs & (gs - 1) or n_buckets % gs:
+        raise ValueError(f"group_size {gs}: must be a power of two dividing {n_buckets} buckets")
+    return gs
 
-    Split b = g*Gs + r (G groups of Gs):
+
+def reduce_and_finish(
+    bucket_sums: torch.Tensor, group_size: int = 0
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Bucket reduction W_k = sum_b b * S_b of [4, 16, K, B] int32 bucket
+    sums -> window sums [4, 16, K] int32, (plain domain, Montgomery domain).
+
+    Gs > 1: split b = g*Gs + r (G groups of Gs),
 
         W = Gs * sum_g g*T_g  +  sum_g U_g,
         T_g = sum_r S[g, r],  U_g = sum_r r * S[g, r].
@@ -191,22 +205,25 @@ def reduce_and_finish(bucket_sums: torch.Tensor) -> tuple[torch.Tensor, torch.Te
     `grouped_running_sum` gives T and U for all K*G groups; `reduce_finish`
     sums g*T_g and U_g over each window's groups, doubles the first log2(Gs)
     times, adds the second and leaves the Montgomery domain.
+
+    Gs 1: `_suffix_weighted` over the buckets, then a plain `from_mont`
+    (the JAX package's XLA step there). `group_size` 0 takes the TPU rule.
     """
     K, B = bucket_sums.shape[-2], bucket_sums.shape[-1]
-    Gs = group_size(B)
-    if Gs == 1 or B % Gs:
-        raise NotImplementedError(
-            f"{B} buckets: only the grouped reduction (Gs = 16 or 32) is ported"
-        )
+    Gs = _resolved_group_size(B, group_size)
+    if Gs == 1:
+        mont = _suffix_weighted(bucket_sums)
+        plain = field_ops.from_mont(limbs.as_i64(mont).transpose(0, 1)).transpose(0, 1)
+        return plain.to(torch.int32).contiguous(), mont
     G = B // Gs
     s = bucket_sums.reshape(4, 16, K * G, Gs).permute(3, 0, 1, 2).contiguous()
     T, U = pk.grouped_running_sum(s)  # [4, 16, K*G]
     return pk.reduce_finish(T, U, K, Gs.bit_length() - 1)
 
 
-def reduce_buckets(bucket_sums: torch.Tensor) -> torch.Tensor:
+def reduce_buckets(bucket_sums: torch.Tensor, group_size: int = 0) -> torch.Tensor:
     """Window sums [4, 16, K] int64 in the Montgomery domain."""
-    return limbs.as_i64(reduce_and_finish(bucket_sums)[1])
+    return limbs.as_i64(reduce_and_finish(bucket_sums, group_size)[1])
 
 
 def accumulate_and_reduce(
@@ -259,3 +276,32 @@ def _tree_sum_axis(st: torch.Tensor) -> torch.Tensor:
         cur = pk.padd_masked(cur, shifted, mask)
     out = cur.reshape(shape)[..., 0]
     return out if st.dtype == torch.int32 else limbs.as_i64(out)
+
+
+def _suffix_weighted(bucket_sums: torch.Tensor) -> torch.Tensor:
+    """W = sum_b b * S_b over the trailing axis by log-depth suffix scans:
+    [4, 16, *batch, B] int32 Montgomery points -> [4, 16, *batch] int32.
+
+    The JAX package's order: ceil(log2 B) suffix levels (lane b becomes
+    cur[b] + cur[b + d] where b + d < B, so it ends with sum_{b' >= b}
+    S_b'), lane 0 set to the identity (bucket 0 has weight 0), then as many
+    total levels (lane b becomes cur[b] + cur[b - d] where b >= d); lane
+    B - 1 is the result. Each level is one `padd_masked` launch, the lane's
+    own value first, on a plain `torch.roll`: the JAX digits.
+    """
+    shape = bucket_sums.shape
+    B, dev = shape[-1], bucket_sums.device
+    lane = torch.arange(B, device=dev).expand(shape[2:]).reshape(-1)
+    cur = bucket_sums.reshape(4, 16, -1).contiguous()
+    levels = max((B - 1).bit_length(), 1)
+
+    def level(cur, shift, mask):
+        shifted = torch.roll(cur.reshape(shape), shift, dims=-1).reshape(cur.shape)
+        return pk.padd_masked(cur, shifted, mask.to(torch.int32))
+
+    for i in range(levels):
+        cur = level(cur, -(1 << i), lane + (1 << i) < B)
+    cur = torch.where(lane == 0, pk.identity_planes((1,), dev), cur)
+    for i in range(levels):
+        cur = level(cur, 1 << i, lane >= 1 << i)
+    return cur.reshape(shape)[..., B - 1].contiguous()

@@ -62,6 +62,10 @@ def double(p: ExtPoint) -> ExtPoint:
     return ExtPoint(fmul(e, f), fmul(g, h), fmul(e, h), fmul(f, g))
 
 
+def neg(p: ExtPoint) -> ExtPoint:
+    return ExtPoint(fneg(p.x), p.y, fneg(p.t), p.z)
+
+
 def scalar_mul(p: ExtPoint, k: int) -> ExtPoint:
     """Double-and-add scalar multiplication (LSB-first)."""
     result = IDENTITY
@@ -72,3 +76,22 @@ def scalar_mul(p: ExtPoint, k: int) -> ExtPoint:
         addend = double(addend)
         k >>= 1
     return result
+
+
+def is_on_curve(p: ExtPoint) -> bool:
+    """Check -x^2 + y^2 == z^2 + d*t^2 and t*z == x*y (projectively)."""
+    x2 = fmul(p.x, p.x)
+    y2 = fmul(p.y, p.y)
+    z2 = fmul(p.z, p.z)
+    t2 = fmul(p.t, p.t)
+    lhs = fsub(y2, x2)
+    rhs = fadd(z2, fmul(EDWARDS_D, t2))
+    return lhs == rhs and fmul(p.t, p.z) == fmul(p.x, p.y)
+
+
+def eq(p1: ExtPoint, p2: ExtPoint) -> bool:
+    """Projective equality: x1/z1 == x2/z2 and y1/z1 == y2/z2."""
+    return (
+        fmul(p1.x, p2.z) == fmul(p2.x, p1.z)
+        and fmul(p1.y, p2.z) == fmul(p2.y, p1.z)
+    )

@@ -10,6 +10,7 @@ from typing import Sequence
 import numpy as np
 
 N_WORDS = 8  # u32 words per 256-bit value
+SCALAR_BITS = 256
 
 
 def bigints_to_u32_be(values: Sequence[int]) -> np.ndarray:
@@ -71,3 +72,10 @@ def words_le_to_be_rows(arr: np.ndarray) -> np.ndarray:
     """[8, n] little-endian planes -> [n, 8] big-endian rows."""
     arr = np.asarray(arr, dtype=np.uint32)
     return np.ascontiguousarray(arr.T[:, ::-1])
+
+
+def points_to_words_le(
+    xs: Sequence[int], ys: Sequence[int], ts: Sequence[int], zs: Sequence[int]
+) -> np.ndarray:
+    """Four coordinate lists -> [4, 8, n] LE word planes (x, y, t, z)."""
+    return np.stack([bigints_to_words_le(c) for c in (xs, ys, ts, zs)])

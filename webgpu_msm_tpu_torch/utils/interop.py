@@ -36,7 +36,7 @@ def mont_planes_from_points(points) -> np.ndarray:
     out = np.zeros((4, 16, len(points)), dtype=np.uint32)
     for i, p in enumerate(points):
         for c, v in enumerate((p.x, p.y, p.t, p.z)):
-            m = v * field.R_MOD_P % field.P
+            m = field.to_mont(v)
             out[c, :, i] = [(m >> (16 * d)) & 0xFFFF for d in range(16)]
     return out
 
@@ -48,7 +48,7 @@ def affine_from_planes(st, mont: bool = True) -> list[tuple[int, int]]:
     from ..oracle import curve, field
 
     st = np.asarray(st, dtype=np.uint64)
-    scale = pow(field.R, -1, field.P) if mont else 1
+    scale = field.R_INV_MOD_P if mont else 1
     out = []
     for i in range(st.shape[-1]):
         vals = [sum(int(st[c, d, i]) << (16 * d) for d in range(16)) for c in range(4)]
