@@ -10,7 +10,7 @@
    g++ and OpenMP at the same time (without them the run fails).
 3. Times independent `mad.lo.u32` chains (a probe kernel in this file): the
    card's 32-bit integer multiply rate, which the operations bound of every
-   kernel uses. Runs each of the twelve kernels and its plain PyTorch version
+   kernel uses. Runs each of the thirteen kernels and its plain PyTorch version
    on the card on seeded inputs at the shapes of the 2^20-point paths,
    requires every output digit to be equal, and times both with CUDA
    events (the grouped sum at the shapes of both reduction passes,
@@ -20,7 +20,10 @@
    points, the gathering scan at L 512 x W 32 768, `lane_scan` at K 16,
    `assemble_buckets` over K 16 x B 32 800 buckets without a carry,
    `grouped_running_sum` at [32, 4, 16, 16 400], `reduce_finish` at 1 025
-   groups a window): rows labelled "[resident 2^20]".
+   groups a window), and the tensor-core gathering scan
+   (`accumulate_scan_gather(use_mma=True)`) at the gathering scan's shape:
+   rows labelled "[resident 2^20]". Prints each kernel's ptxas line with
+   its occupancy (warps an SM) where the library reports one.
 4. Drives every path with the launch counts set to 0 just before and read
    just after; each path names the kernels it must and must not launch:
    - the wire `compute_msm` on the pinned 2^16-2^20 inputs (each power
@@ -44,6 +47,9 @@
      `compute_msm`, against the case's expected result;
    - the A/B path of the tensor-core scan: the CIOS scan and the
      tensor-core scan at the production shape, in turns, required equal;
+     then the gathering pair, the CIOS and the tensor-core gathering
+     scans at the resident shape (L 512 x W 32 768), in turns, required
+     equal on all three outputs;
    - the hybrid engine on the 2^20 wire input at `cpu_work_ratio` 0.2
      (cold and warm, and its CPU and GPU shares alone) and at 1.0 (the
      native engine alone, no kernel), and on the 2^16 lists at 0.2 (the
@@ -64,6 +70,12 @@
      no synchronizing call before the finish (PyTorch's sync check), a
      profile and the peak device memory; `msm_window_sums` on the same
      points gives the same window sums as points;
+   - a full MSM through the tensor-core gathering scan: the same pinned
+     2^20 input's scan arguments at the resident plan, built as the
+     preamble of `pippenger._accumulate_batch` builds them (digits, the
+     stable sort, the lanes), then `accumulate_scan_gather(use_mma=True)`,
+     `lane_scan`, `assemble_buckets`, `reduce_and_finish` and the host
+     combine, against `PINNED[20]`, one launch each and no CIOS scan;
    - the bucket reduction at every group size at the resident shape: the
      2^20 pinned input's bucket sums after one `accumulate_buckets` (w 16
      signed, K 16, B 32 800) through `reduce_and_finish(group_size=Gs)` for
@@ -100,7 +112,8 @@
    Every result must be the pinned one or, where none is pinned, the wire
    path's on the same inputs (or the oracle's). Every GPU `compute_msm` path
    launches the gathering scan, `lane_scan` and `assemble_buckets` once a
-   batch, and neither `padd_masked` nor `padd`; every wire path and plan
+   batch, and neither `padd_masked`, `padd` nor a tensor-core scan; every
+   wire path and plan
    build launches `to_niels_xy_rows` once a base batch and `to_niels_xy`
    never.
 5. Prints the kernel table as one JSON line, then the result line.
@@ -236,7 +249,7 @@ def kernel_inputs(gen: torch.Generator, dev, M=1 << 18, K=20, C=2048, L=128, B=4
         niels = field_planes(gen, (3,), L * W).to(torch.int64).reshape(3, 16, L, W)
         packed = niels[:, 0::2] | (niels[:, 1::2] << 16)
         scan = (as_i32(packed).contiguous().to(dev), as_i32(ids).to(dev))
-    if want("accumulate_scan_gather"):
+    if want("accumulate_scan_gather", "accumulate_scan_gather_mma"):
         # The gathering scan's input as a batch stage makes it: signed digits
         # of C * L points per window, sorted, with the sort's permutation;
         # packed rows.
@@ -273,6 +286,7 @@ def kernel_inputs(gen: torch.Generator, dev, M=1 << 18, K=20, C=2048, L=128, B=4
         "grouped_running_sum": lambda: (pts((Gs, 4), K * G),),
         "grouped_running_sum pass 2": lambda: (pts((G, 4), 2 * K),),
         "accumulate_scan_gather": lambda: (rows.to(dev), lanes(order), lanes(sorted_ids), K, B),
+        "accumulate_scan_gather_mma": lambda: (rows.to(dev), lanes(order), lanes(sorted_ids), K, B),
         "reduce_finish": lambda: (pts((4,), K * G), pts((4,), K * G), K, Gs.bit_length() - 1),
         "lane_scan": lambda: (pts((4,), W), final_id.to(torch.int32).to(dev), K),
         "assemble_buckets": lambda: (pts((4,), K * B), pts((4,), W), hist.to(torch.int32).to(dev),
@@ -362,7 +376,7 @@ def bound(name: str, args, ops_per_s: float) -> tuple[float, str]:
         _, _, L, W = args[0].shape
         nbytes += (64 * L * W + 64 * W + W) * 4
         muls = 7 * L * W
-    elif name == "accumulate_scan_gather":
+    elif name in ("accumulate_scan_gather", "accumulate_scan_gather_mma"):  # the same work
         _, _, ids, K, B = args
         L, W = ids.shape
         # The row table read once (the card's L2 holds it over the K
@@ -609,8 +623,10 @@ def main() -> int:
         build.load()
         print(f"build: {build.library_path().name} in {time.perf_counter() - t0:.1f} s")
         print(f"build: {native_build.library_path().name} (g++, OpenMP) in {native.result():.1f} s")
+    occupancy = build.occupancy()
     for kname, line in sorted(build.ptxas_report().items()):
-        print(f"ptxas {kname}: {line}")
+        occ = f"; occupancy {occupancy[kname]} warps an SM" if kname in occupancy else ""
+        print(f"ptxas {kname}: {line}{occ}")
 
     # 3. the multiply rate, then each kernel against its plain version at the
     # main path's shapes
@@ -621,6 +637,8 @@ def main() -> int:
     inputs = kernel_inputs(gen, dev)
     scan_mma = lambda p, i: pk.accumulate_scan(p, i, use_mma=True)
     scan_mma_plain = lambda p, i: pk.accumulate_scan_plain(p, i, use_mma=True)
+    gather_mma = lambda *a: pk.accumulate_scan_gather(*a, use_mma=True)
+    gather_mma_plain = lambda *a: pk.accumulate_scan_gather_plain(*a, use_mma=True)
     padd_py, padd_cu, mma_cu = PALLAS + "padd_kernels.py:{}", CSRC + "padd_kernels.cu", CSRC + "mma_kernels.cu"
     # name -> (wrapper, plain version, TPU kernel, source, timed launches)
     kernels = {
@@ -647,6 +665,9 @@ def main() -> int:
         # and the row packing after it, on every wire path
         "to_niels_xy_rows": (pk.to_niels_xy_rows, pk.to_niels_xy_rows_plain, padd_py.format(498),
                              padd_cu, 20),
+        # the gathering scan with the tensor-core product, on no path
+        "accumulate_scan_gather_mma": (gather_mma, gather_mma_plain, PALLAS + "field_kernels_mxu.py:125",
+                                       mma_cu, 3),
     }
     check(tuple(kernels) == pk.KERNELS, "the kernel table does not list the package's kernels")
     # Load each plain version's torch kernels once at a small shape, so its
@@ -697,10 +718,14 @@ def main() -> int:
     resident_inputs = kernel_inputs(gen, dev, M=1 << 20, K=16, C=2048, L=512, B=32800,
                                     top=(1 << 13) + 1, carry=False, names=RESIDENT_KERNELS)
     resident_rows = {}
-    for kname in RESIDENT_KERNELS:
+    # the gathering scan's inputs: also the tensor-core gathering scan's
+    # row below and the gathering pair of the A/B phase (4g)
+    gather_args = resident_inputs["accumulate_scan_gather"]
+    for kname in RESIDENT_KERNELS + ("accumulate_scan_gather_mma",):
         kern, plain, replaces, source, reps = kernels[kname]
-        resident_rows[kname] = hold(kname, kern, plain, resident_inputs.pop(kname), reps, ops_per_s,
-                                    replaces, source, smi, RESIDENT)
+        args = gather_args if kname == "accumulate_scan_gather_mma" else resident_inputs.pop(kname)
+        resident_rows[kname] = hold(kname, kern, plain, args, reps, ops_per_s, replaces, source, smi,
+                                    RESIDENT)
         torch.cuda.empty_cache()
     print(f"phase resident kernels: {time.perf_counter() - t0:.1f} s")
 
@@ -881,6 +906,29 @@ def main() -> int:
           f"no compute_msm path launches either [{smi}]")
     del scan_args
 
+    # The gathering pair at the resident shape: the CIOS and the tensor-core
+    # gathering scans in turns, required equal on all three outputs.
+    def gather_ab():
+        times = {False: [], True: []}
+        outs = {}
+        for use_mma in (False, True, True, False):
+            call = lambda: pk.accumulate_scan_gather(*gather_args, use_mma=use_mma)
+            times[use_mma].append(cuda_ms(call, 3))
+            outs[use_mma] = call()
+        check(max_abs_err(outs[False], outs[True]) == 0,
+              "the tensor-core gathering scan differs from the CIOS gathering scan")
+        return times
+
+    ab_kernels = ("accumulate_scan_gather", "accumulate_scan_gather_mma")
+    times, _, counts = drive("gathering scan A/B", pk, gather_ab, ab_kernels, others(*ab_kernels))
+    rows["accumulate_scan_gather_mma"]["launches"] = counts["accumulate_scan_gather_mma"]
+    print(f"gathering scan A/B {tuple(gather_args[1].shape)} [resident 2^20]: tensor-core gathering scan "
+          f"equals CIOS gathering scan on all outputs; CIOS {min(times[False]):.4f} ms, tensor-core "
+          f"{min(times[True]):.4f} ms (runs {times[False]} / {times[True]}); launches "
+          f"{ {k: v for k, v in counts.items() if v} }; no compute_msm path launches the tensor-core one "
+          f"[{smi}]")
+    del gather_args
+
     # 4h. the hybrid engine on the 2^20 wire input at cpu_work_ratio 0.2: the
     # native engine on the first int(0.2 n) rows in a worker thread while the
     # card computes the rest; the GPU share pads to the same four batches as
@@ -1042,6 +1090,38 @@ def main() -> int:
           f"launches {counts} [{smi}]")
     del out, mont
     print(f"phase resident: {time.perf_counter() - t_resident:.1f} s")
+
+    # 4o''. a full MSM through the tensor-core gathering scan: the resident
+    # plan's scan arguments for the same points and scalars, built as the
+    # preamble of pippenger._accumulate_batch builds them (digits, the stable
+    # sort, the lanes), then the scan with use_mma, lane_scan,
+    # assemble_buckets, reduce_and_finish and the host combine
+    def mma_msm():
+        rows_r = pk.pack_rows(pk.to_niels(pts_t))
+        digits = pippenger.compute_digits(limbs.as_i64(sc_t), w_res, signed)
+        K, B = digits.shape[0], pippenger.n_buckets(w_res, signed)
+        sorted_digits, perm = torch.sort(digits & 0x7FFFFFFF, dim=1, stable=True)
+        sorted_packed = torch.gather(digits, 1, perm)
+        lanes = lambda t: (limbs.as_i32(t).reshape(K, C_res, L_res).permute(2, 0, 1)
+                           .reshape(L_res, K * C_res).contiguous())
+        final_acc, final_id, partial = pk.accumulate_scan_gather(rows_r, lanes(perm), lanes(sorted_packed),
+                                                                 K, B, use_mma=True)
+        carries = pk.lane_scan(final_acc, final_id, K)
+        buckets = torch.arange(B, device=dev).expand(K, B).contiguous()
+        e_pos = torch.searchsorted(sorted_digits, buckets, right=True, out_int32=True)
+        hist = torch.diff(e_pos, dim=1, prepend=torch.zeros((K, 1), dtype=torch.int32, device=dev))
+        bs = pk.assemble_buckets(partial, carries, hist, e_pos, L_res).reshape(4, 16, K, B)
+        return pippenger.reduce_and_finish(bs)[0]
+
+    mma_kernels = ("to_niels", "accumulate_scan_gather_mma") + RESIDENT_KERNELS[2:]
+    out, ms, counts = drive("tensor-core MSM 2^20", pk, mma_msm, mma_kernels, others(*mma_kernels))
+    check(all(counts[k] == 1 for k in mma_kernels), f"tensor-core MSM 2^20: launches {counts}, not one each")
+    check(affine_of(out, w_res) == PINNED[20], "tensor-core MSM 2^20: result differs from PINNED")
+    resident_rows["accumulate_scan_gather_mma"]["launches"] = counts["accumulate_scan_gather_mma"]
+    print(f"tensor-core MSM 2^20 (w {w_res} signed, C {C_res} x L {L_res}): equals PINNED[20] through "
+          f"accumulate_scan_gather(use_mma=True); launches { {k: v for k, v in counts.items() if v} }; "
+          f"wall {ms:.1f} ms (first call) [{smi}]")
+    del out
 
     # 4o'. the bucket reduction at every group size, at the resident shape:
     # the same points' bucket sums after one accumulate_buckets (w 16 signed,
@@ -1292,11 +1372,12 @@ def main() -> int:
 
     # 5. summary lines
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the builds included")
-    print("kernels: " + ", ".join(pk.KERNELS) + "; at the resident shapes: " + ", ".join(RESIDENT_KERNELS)
+    print("kernels: " + ", ".join(pk.KERNELS) + "; at the resident shapes: "
+          + ", ".join(RESIDENT_KERNELS + ("accumulate_scan_gather_mma",))
           + "; at the sharded tree's shape: padd_masked; at the suffix scan's shape: padd_masked; "
           + "at Gs 4: " + ", ".join(gs4_rows))
     print(json.dumps({"kernels": [rows[k] for k in pk.KERNELS]
-                      + [resident_rows[k] for k in RESIDENT_KERNELS] + [sharded_row, suffix_row]
+                      + list(resident_rows.values()) + [sharded_row, suffix_row]
                       + list(gs4_rows.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
     return 0

@@ -64,19 +64,8 @@ def _inputs(name, rng, dev, width=300):
         ids |= rng.integers(0, 2, size=(L, width)).astype(np.uint32) << 31
         niels = rand_planes(rng, (3,), L * width).reshape(3, 16, L, width)
         return (t(niels[:, 0::2] | (niels[:, 1::2] << 16)), t(ids))
-    if name == "accumulate_scan_gather":
-        # `width` lanes as K windows of C lanes; each window's ids sorted.
-        K, L, B = (3 if width % 3 == 0 else 1), 12, 40
-        C = width // K
-        M = C * L
-        digits = rng.integers(0, B, size=(K, M)).astype(np.uint32)
-        perm = np.argsort(digits, axis=1, kind="stable").astype(np.uint32)
-        ids = np.take_along_axis(digits, perm.astype(np.int64), axis=1)
-        ids |= rng.integers(0, 2, size=(K, M)).astype(np.uint32) << 31
-        lanes = lambda a: a.reshape(K, C, L).transpose(2, 0, 1).reshape(L, width).copy()
-        niels = rand_planes(rng, (3,), M)
-        rows = (niels[:, 0::2] | (niels[:, 1::2] << 16)).reshape(24, M).T.copy()
-        return (t(rows), t(lanes(perm)), t(lanes(ids)), K, B)
+    if name in ("accumulate_scan_gather", "accumulate_scan_gather_mma"):
+        return _gather_inputs(rng, dev, width, 12)
     if name == "reduce_finish":
         return (t(rand_planes(rng, (4,), width)), t(rand_planes(rng, (4,), width)),
                 3 if width % 3 == 0 else 1, 5)
@@ -95,6 +84,23 @@ def _inputs(name, rng, dev, width=300):
     return (t(rand_planes(rng, (5, 4), width)),)
 
 
+def _gather_inputs(rng, dev, width, L, B=40):
+    """The gathering scan's arguments: `width` lanes as K windows of C lanes
+    of L steps, each window's ids sorted, with random signs."""
+    t = lambda arr: planes_from_numpy(arr, dev)
+    K = 3 if width % 3 == 0 else 1
+    C = width // K
+    M = C * L
+    digits = rng.integers(0, B, size=(K, M)).astype(np.uint32)
+    perm = np.argsort(digits, axis=1, kind="stable").astype(np.uint32)
+    ids = np.take_along_axis(digits, perm.astype(np.int64), axis=1)
+    ids |= rng.integers(0, 2, size=(K, M)).astype(np.uint32) << 31
+    lanes = lambda a: a.reshape(K, C, L).transpose(2, 0, 1).reshape(L, width).copy()
+    niels = rand_planes(rng, (3,), M)
+    rows = (niels[:, 0::2] | (niels[:, 1::2] << 16)).reshape(24, M).T.copy()
+    return (t(rows), t(lanes(perm)), t(lanes(ids)), K, B)
+
+
 def _batch_ids(rng, K, C, L=4, B=40):
     """The lane scan's and the bucket assembly's integer inputs as a batch
     stage makes them from K windows of C * L sorted bucket ids: final_id
@@ -110,6 +116,9 @@ def _kernel_and_plain(name):
     if name == "accumulate_scan_mma":
         return (lambda p, i: pk.accumulate_scan(p, i, use_mma=True),
                 lambda p, i: pk.accumulate_scan_plain(p, i, use_mma=True))
+    if name == "accumulate_scan_gather_mma":
+        return (lambda *a: pk.accumulate_scan_gather(*a, use_mma=True),
+                lambda *a: pk.accumulate_scan_gather_plain(*a, use_mma=True))
     return getattr(pk, name), getattr(pk, name + "_plain")
 
 
@@ -229,6 +238,27 @@ def test_compute_msm_on_card_matches_oracle(cuda):
 def test_tensor_core_scan_equals_cios_scan_on_card(cuda):
     args = _inputs("accumulate_scan", np.random.default_rng(11), cuda, width=2049)
     for a, b in zip(pk.accumulate_scan(*args), pk.accumulate_scan(*args, use_mma=True)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("width,L", [(31, 12), (301, 12), (300, 1), (33, 1)])
+def test_tensor_core_gathering_scan_matches_plain_on_card(cuda, width, L):
+    """Ragged widths (the last warp partly beyond W, its lanes shadowing
+    lane W - 1) and a single step (L 1: no row read ahead)."""
+    args = _gather_inputs(np.random.default_rng(width + L), cuda, width, L)
+    before = dict(pk.launches)
+    got = pk.accumulate_scan_gather(*args, use_mma=True)
+    torch.cuda.synchronize()
+    assert pk.launches == {**before, "accumulate_scan_gather_mma": before["accumulate_scan_gather_mma"] + 1}
+    for g, w in zip(got, pk.accumulate_scan_gather_plain(*args, use_mma=True)):
+        assert torch.equal(g, w)
+
+
+def test_tensor_core_gathering_scan_equals_cios_gathering_scan_on_card(cuda):
+    """A middling shape, 3 windows of 1 000 lanes of 64 steps, over 700
+    buckets: kernel against kernel, every output digit."""
+    args = _gather_inputs(np.random.default_rng(12), cuda, 3000, 64, B=700)
+    for a, b in zip(pk.accumulate_scan_gather(*args), pk.accumulate_scan_gather(*args, use_mma=True)):
         assert torch.equal(a, b)
 
 
@@ -361,7 +391,7 @@ def test_virtual_mesh_of_2_on_card_matches_oracle(cuda, mode):
         "accumulate_scan_gather": 2, "lane_scan": 2, "assemble_buckets": 2, "padd_masked": 1,
         "grouped_running_sum": reductions, "reduce_finish": reductions,
         **{k: 0 for k in ("to_niels_xy", "accumulate_scan", "padd", "to_niels", "accumulate_scan_mma",
-                          "to_niels_xy_rows")},
+                          "to_niels_xy_rows", "accumulate_scan_gather_mma")},
     }
     assert window_sums_affine(got, w) == curve.to_affine(msm.msm(pts, sc, w))
 

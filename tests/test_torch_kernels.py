@@ -6,6 +6,7 @@ On the CPU a wrapper runs its kernel's plain version; the CUDA kernels
 themselves are held against the same plain versions on the card by
 tests/test_torch_gpu.py.
 """
+import inspect
 import re
 
 import jax.numpy as jnp
@@ -192,10 +193,15 @@ def test_every_kernel_has_a_count_and_a_plain_version():
     assert pk.KERNELS == ("to_niels_xy", "accumulate_scan", "padd_masked", "padd",
                           "grouped_running_sum", "to_niels", "accumulate_scan_mma",
                           "accumulate_scan_gather", "reduce_finish", "lane_scan",
-                          "assemble_buckets", "to_niels_xy_rows")
+                          "assemble_buckets", "to_niels_xy_rows", "accumulate_scan_gather_mma")
     assert set(pk.launches) == set(pk.KERNELS)
-    for name in pk.KERNELS[:6] + pk.KERNELS[7:]:
-        assert callable(getattr(pk, name)) and callable(getattr(pk, name + "_plain"))
+    for name in pk.KERNELS:
+        # a tensor-core scan is its CIOS scan's wrapper and plain version with use_mma
+        base = name.replace("_mma", "")
+        assert callable(getattr(pk, base)) and callable(getattr(pk, base + "_plain"))
+        if base != name:
+            for fn in (getattr(pk, base), getattr(pk, base + "_plain")):
+                assert inspect.signature(fn).parameters["use_mma"].default is False
 
 
 def test_signatures_cover_every_c_entry_point():

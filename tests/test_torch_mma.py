@@ -1,18 +1,26 @@
 """The matrix-form Montgomery reduction of the port (the plain version of
-the tensor-core scan kernel) against the JAX package's MXU form.
+the tensor-core scan kernels) against the JAX package's MXU form, and the
+gathering scan on that product against the CIOS one and the JAX batch
+stage.
 
 `kmont_mul_mxu` is plain jnp over digit lists and needs no Pallas, so it
-runs directly on the CPU; every comparison is exact.
+runs directly on the CPU; the JAX batch stage runs op by op under
+`jax.disable_jit()`. Every comparison is exact.
 """
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from webgpu_msm_tpu.ops import pippenger as jpip
 from webgpu_msm_tpu.ops.pallas import field_kernels_mxu as jmxu
 from webgpu_msm_tpu.oracle import field as F
+from webgpu_msm_tpu.utils import convert, fixtures
 
-from webgpu_msm_tpu_torch.ops import field_ops, limbs
+from webgpu_msm_tpu_torch.ops import field_ops, limbs, pippenger
 from webgpu_msm_tpu_torch.ops.kernels import field_kernels_mma as fm
 from webgpu_msm_tpu_torch.ops.kernels import padd_kernels as pk
 from webgpu_msm_tpu_torch.oracle import field as tF
@@ -61,6 +69,13 @@ def test_m1_matrix_matches_jax_where_the_forms_coincide():
         for j in range(3):
             if 2 * k + j < 32:
                 np.testing.assert_array_equal(m1[:, 2 * k + j].astype(np.float32), jm1[:, 3 * k + j])
+
+
+def rand_planes(rng, lead, width):
+    """Random field elements below p as [*lead, 16, width] uint32 digits."""
+    d = rng.integers(0, 1 << 16, size=lead + (16, width), dtype=np.uint32)
+    d[..., 15, :] %= 0x12AB  # p's top digit is 0x12ab
+    return d
 
 
 @pytest.mark.parametrize("which", ["m1", "m2"])
@@ -142,3 +157,87 @@ def test_wrapper_with_use_mma_runs_the_plain_version_on_the_cpu():
     assert pk.launches == {name: 0 for name in pk.KERNELS}
     for g, w in zip(got, pk.accumulate_scan(pts, ids)):
         assert torch.equal(g, w)
+
+
+def gather_inputs(rng, sorted_ids: np.ndarray, C: int, L: int):
+    """The gathering scan's arguments for K windows of C lanes of L steps:
+    rows [C * L, 24] of random Niels limbs below p, and perm and ids [L,
+    K * C] from each window's sorted ids (with random signs) over a random
+    order of the points."""
+    K, M = sorted_ids.shape
+    niels = rand_planes(rng, (3,), M)
+    rows = (niels[:, 0::2] | (niels[:, 1::2] << 16)).reshape(24, M).T.copy()
+    perm = np.stack([rng.permutation(M) for _ in range(K)]).astype(np.uint32)
+    ids = sorted_ids.astype(np.uint32) | (rng.integers(0, 2, size=(K, M)).astype(np.uint32) << 31)
+    lanes = lambda a: planes_from_numpy(a.reshape(K, C, L).transpose(2, 0, 1).reshape(L, K * C).copy())
+    return planes_from_numpy(rows), lanes(perm), lanes(ids)
+
+
+def runs(*spec) -> list[int]:
+    """Sorted ids from (bucket, run length) pairs."""
+    return [b for b, n in spec for _ in range(n)]
+
+
+# One window of C 8 lanes of L 8 steps (W 8), over B 16 buckets: runs over
+# two and three lanes, runs ending exactly at a lane edge (positions 16 and
+# 40), single points, and the top bucket.
+ONE_WINDOW = [runs((0, 3), (2, 13), (5, 8), (6, 1), (9, 15), (11, 8), (12, 1), (15, 15))]
+
+
+@pytest.mark.parametrize("windows", ["patterns", "two windows"])
+def test_gather_scan_plain_with_mma_equals_gather_scan_plain(windows):
+    """The gathering scan on the matrix-form product equals it on CIOS
+    products, every output digit: one window of hand-made runs (W 8), or
+    a two-window split of random ids over few buckets (W 16)."""
+    rng = np.random.default_rng(15)
+    C, L = 8, 8
+    if windows == "patterns":
+        sorted_ids, B = np.array(ONE_WINDOW), 16
+    else:
+        sorted_ids, B = np.sort(rng.integers(0, 6, size=(2, C * L)), axis=1), 6
+    args = gather_inputs(rng, sorted_ids, C, L) + (sorted_ids.shape[0], B)
+    want = pk.accumulate_scan_gather_plain(*args)
+    got = pk.accumulate_scan_gather_plain(*args, use_mma=True)
+    assert len(got) == 3
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    # the ids cross lane edges: some partial sum is not the identity
+    assert not torch.equal(want[2], pk.identity_planes((want[2].shape[-1],), "cpu"))
+
+
+def test_gather_wrapper_with_use_mma_runs_the_plain_version_on_the_cpu():
+    rng = np.random.default_rng(16)
+    args = gather_inputs(rng, np.array(ONE_WINDOW), 8, 8) + (1, 16)
+    pk.reset_launch_counts()
+    got = pk.accumulate_scan_gather(*args, use_mma=True)
+    assert pk.launches == {name: 0 for name in pk.KERNELS}
+    for g, w in zip(got, pk.accumulate_scan_gather_plain(*args)):
+        assert torch.equal(g, w)
+
+
+def test_batch_stage_on_the_mma_gather_scan_matches_jax(monkeypatch):
+    """The port's `_accumulate_batch` (the digits' sort and lanes, then the
+    gathering scan, `lane_scan`, `assemble_buckets`) with the scan on the
+    matrix-form product gives the JAX `_accumulate_batch`'s bucket sums,
+    digit for digit: w 8 signed (K 32, B 160), C 2 x L 8. Ten of the 16
+    scalars are equal, so in every window one run spans both lanes."""
+    w, C, L = 8, 2, 8
+    M, K, B = C * L, -(-256 // w), pippenger.n_buckets(w, True)
+    sc = fixtures.random_scalars(M, seed=81)
+    sc[:10] = [sc[0]] * 10
+    sc[10:12] = [0, F.P - 1]
+    words = convert.bigints_to_u32_be(sc)[:, ::-1].T.copy()  # [8, M] LE words
+    niels = rand_planes(np.random.default_rng(82), (3,), M)
+    with jax.disable_jit():
+        want = jpip._accumulate_batch(jnp.asarray(niels),
+                                      jpip.compute_digits(jnp.asarray(words), w, True), w, C, L, B)
+    digits = pippenger.compute_digits(limbs.as_i64(planes_from_numpy(words)), w, True)
+    products = []
+    real_mul = fm.mont_mul_mma_plain
+    monkeypatch.setattr(fm, "mont_mul_mma_plain", lambda a, b: products.append(1) or real_mul(a, b))
+    monkeypatch.setattr(pk, "accumulate_scan_gather",
+                        functools.partial(pk.accumulate_scan_gather, use_mma=True))
+    pk.reset_launch_counts()
+    got = pippenger._accumulate_batch(pk.pack_rows(planes_from_numpy(niels)), digits, w, C, L, B)
+    assert len(products) == 7 * L and pk.launches  # the Niels add's 7 products a step == {name: 0 for name in pk.KERNELS}
+    np.testing.assert_array_equal(planes_to_numpy(got), np.asarray(want))

@@ -38,12 +38,18 @@ SIGNATURES = {
     "launch_accumulate_scan": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "launch_accumulate_scan_mma": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "launch_accumulate_scan_gather": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "launch_accumulate_scan_gather_mma": (_P,) * 8 + (_I, _I, _I, _I, _I, _P),
     "launch_grouped_running_sum": (_P, _P, _P, _I, _I, _I, _I, _P),
     "launch_reduce_finish": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "launch_lane_scan": (_P, _P, _P, _P, _I, _I, _I, _P),
     "launch_assemble_buckets": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "launch_to_niels_xy_rows": (_P, _P, _I, _I, _P),
 }
+
+# Kernels whose occupancy the library reports: C entry point
+# `occupancy_<name>(int* warps)`, the warps of `<name>_kernel` that one SM
+# holds at the block size its launch uses.
+OCCUPANCY = ("accumulate_scan_gather", "accumulate_scan_gather_mma")
 
 _lib: ctypes.CDLL | None = None
 
@@ -115,6 +121,10 @@ def load() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
+        for name in OCCUPANCY:
+            fn = getattr(lib, "occupancy_" + name)
+            fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+            fn.restype = ctypes.c_int
         lib.msm_error_string.argtypes = [ctypes.c_int]
         lib.msm_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -135,3 +145,16 @@ def ptxas_report() -> dict[str, str]:
         elif current and re.search(r"registers|spill|smem", line):
             report[current].append(line.replace("ptxas info    :", "").strip())
     return {k: "; ".join(v) for k, v in report.items()}
+
+
+def occupancy() -> dict[str, int]:
+    """Kernel name (`<name>_kernel`) -> warps an SM at its launch's block
+    size, from the CUDA runtime's occupancy calculator (OCCUPANCY)."""
+    lib, out = load(), {}
+    for name in OCCUPANCY:
+        warps = ctypes.c_int(0)
+        rc = getattr(lib, "occupancy_" + name)(ctypes.byref(warps))
+        if rc != 0:
+            raise RuntimeError(f"occupancy of {name}: {lib.msm_error_string(rc).decode()}")
+        out[name + "_kernel"] = warps.value
+    return out

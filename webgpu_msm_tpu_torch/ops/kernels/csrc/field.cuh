@@ -296,4 +296,15 @@ __device__ __forceinline__ void store_pt(int32_t* dst, size_t stride, size_t bas
 // several cards. 0 on success, else the runtime's error.
 inline int use_device(int device) { return (int)cudaSetDevice(device); }
 
+// Host side: how many warps of `kernel`, launched in blocks of `threads`,
+// one SM holds at once (registers and shared memory both count), into
+// *warps. 0 on success, else the runtime's error.
+template <class Kernel>
+inline int warps_per_sm(Kernel kernel, int threads, int* warps) {
+  int blocks = 0;
+  const int err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, 0);
+  *warps = blocks * threads / 32;
+  return err;
+}
+
 }  // namespace msm

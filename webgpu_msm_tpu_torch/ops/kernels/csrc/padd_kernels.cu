@@ -25,6 +25,7 @@
 #include <cuda_runtime.h>
 
 #include "field.cuh"
+#include "gather_scan.cuh"
 
 using namespace msm;
 namespace cg = cooperative_groups;
@@ -32,6 +33,7 @@ namespace cg = cooperative_groups;
 namespace {
 constexpr int kThreads = 128;     // elementwise kernels
 constexpr int kScanThreads = 64;  // long per-thread loops: more, smaller blocks
+constexpr int kGatherThreads = 256;  // the gathering scan: 64 lanes a block
 
 inline int blocks(int n, int threads) { return (n + threads - 1) / threads; }
 }  // namespace
@@ -359,102 +361,16 @@ extern "C" __global__ void accumulate_scan_kernel(const int32_t* __restrict__ pt
 //     the row one step ahead, so the perm -> row latency is off the chain.
 // Lanes beyond W shadow lane W-1, so that warps are whole for the shuffles,
 // and store nothing. Per lane-step: 8 products, 104 B read; bound by the
-// products.
+// products. The body is gather_scan (gather_scan.cuh) on CIOS products; the
+// tensor-core kernel (mma_kernels.cu) runs the same body.
 // ---------------------------------------------------------------------------
-extern "C" __global__ void __launch_bounds__(256)
+extern "C" __global__ void __launch_bounds__(kGatherThreads)
 accumulate_scan_gather_kernel(const int4* __restrict__ rows, const int32_t* __restrict__ perm,
                               const int32_t* __restrict__ ids, int32_t* __restrict__ partial,
                               int32_t* __restrict__ final_acc, int32_t* __restrict__ final_id,
                               int L, int W, int C, int B) {
-  const int gt = blockIdx.x * blockDim.x + threadIdx.x;
-  const int role = gt & 3;
-  const bool live = (gt >> 2) < W;
-  const int w = live ? (gt >> 2) : W - 1;
-  const int base = (threadIdx.x & 31) & ~3;  // this lane's role-0 thread in the warp
-  const size_t KB = (size_t)(W / C) * B;
-  const size_t bucket0 = (size_t)(w / C) * B;
-  const bool is_one = (role & 1) != 0;  // the identity: Y and Z are R, X and T are 0
-  u32 own[8];
-#pragma unroll
-  for (int q = 0; q < 8; q++) own[q] = is_one ? R_L[q] : 0u;
-  u32 acc_id = 0xffffffffu;
-
-  // Round 1's second operand: role 0 takes y-x and role 1 y+x (the other way
-  // round under the sign flag), role 2 takes 2d*t, role 3 the constant 2R.
-  auto load_part = [&](int4 r[2], int p, u32 raw) {
-    const bool neg = (raw >> 31) != 0;
-    const int part = role == 2 ? 2 : ((role == 0) != neg ? 0 : 1);
-    if (role != 3) {
-      const int4* src = rows + (size_t)p * 6 + part * 2;
-      r[0] = __ldg(src);
-      r[1] = __ldg(src + 1);
-    }
-  };
-  int4 nxt[2] = {make_int4(0, 0, 0, 0), make_int4(0, 0, 0, 0)};
-  u32 raw_nxt = (u32)ids[w];
-  int p2 = L > 1 ? perm[W + w] : 0;
-  u32 raw2 = L > 1 ? (u32)ids[W + w] : 0u;
-  load_part(nxt, perm[w], raw_nxt);
-  for (int l = 0; l < L; l++) {
-    const int4 c0 = nxt[0], c1 = nxt[1];
-    const u32 raw = raw_nxt;
-    if (l + 1 < L) {  // step l + 1's operand, then step l + 2's row and id
-      load_part(nxt, p2, raw2);
-      raw_nxt = raw2;
-    }
-    if (l + 2 < L) {
-      p2 = perm[(size_t)(l + 2) * W + w];
-      raw2 = (u32)ids[(size_t)(l + 2) * W + w];
-    }
-    const u32 id = raw & 0x7fffffffu;
-    const bool neg = (raw >> 31) != 0;
-    u32 opb[8] = {(u32)c0.x, (u32)c0.y, (u32)c0.z, (u32)c0.w,
-                  (u32)c1.x, (u32)c1.y, (u32)c1.z, (u32)c1.w};
-    u32 nb[8];
-    fneg(nb, opb);
-#pragma unroll
-    for (int q = 0; q < 8; q++) {
-      if (role == 2 && neg) opb[q] = nb[q];
-      if (role == 3) opb[q] = TWO_R_L[q];
-    }
-    if (id != acc_id) {  // a run ends: its in-lane sum goes to its bucket
-      if (acc_id < (u32)B && live)
-        store_fp(partial + (size_t)role * 16 * KB, KB, bucket0 + acc_id, own);
-#pragma unroll
-      for (int q = 0; q < 8; q++) own[q] = is_one ? R_L[q] : 0u;
-    }
-    acc_id = id;
-    u32 other[8], dif[8], sum[8], u[8], r1[8];
-#pragma unroll
-    for (int q = 0; q < 8; q++) other[q] = __shfl_xor_sync(0xffffffffu, own[q], 1);
-    fsub(dif, other, own);  // role 0: Y - X
-    fadd(sum, own, other);  // role 1: Y + X
-#pragma unroll
-    for (int q = 0; q < 8; q++) u[q] = role == 0 ? dif[q] : (role == 1 ? sum[q] : own[q]);
-    mont_mul(r1, u, opb);
-    u32 a[8], b[8], c[8], d[8], e[8], f[8], g[8], h[8], lhs[8], rhs[8];
-#pragma unroll
-    for (int q = 0; q < 8; q++) {
-      a[q] = __shfl_sync(0xffffffffu, r1[q], base);
-      b[q] = __shfl_sync(0xffffffffu, r1[q], base + 1);
-      c[q] = __shfl_sync(0xffffffffu, r1[q], base + 2);
-      d[q] = __shfl_sync(0xffffffffu, r1[q], base + 3);
-    }
-    fsub(e, b, a);
-    fsub(f, d, c);
-    fadd(g, d, c);
-    fadd(h, b, a);
-#pragma unroll
-    for (int q = 0; q < 8; q++) {
-      lhs[q] = role == 1 ? g[q] : (role == 3 ? f[q] : e[q]);
-      rhs[q] = role == 0 ? f[q] : (role == 3 ? g[q] : h[q]);
-    }
-    mont_mul(own, lhs, rhs);
-  }
-  if (live) {
-    store_fp(final_acc + (size_t)role * 16 * W, (size_t)W, w, own);
-    if (role == 0) final_id[w] = (int32_t)acc_id;
-  }
+  gather_scan(rows, perm, ids, partial, final_acc, final_id, L, W, C, B,
+              [](u32 o[8], const u32 a[8], const u32 b[8]) { mont_mul(o, a, b); });
 }
 
 // ---------------------------------------------------------------------------
@@ -716,12 +632,15 @@ extern "C" int launch_accumulate_scan_gather(const void* rows, const void* perm,
                                              void* final_id, int L, int W, int C, int B,
                                              int device, void* stream) {
   if (const int err = use_device(device)) return err;
-  constexpr int kGatherThreads = 256;  // 64 lanes a block
   accumulate_scan_gather_kernel<<<blocks(4 * W, kGatherThreads), kGatherThreads, 0,
                                   (cudaStream_t)stream>>>(
       (const int4*)rows, (const int32_t*)perm, (const int32_t*)ids, (int32_t*)partial,
       (int32_t*)final_acc, (int32_t*)final_id, L, W, C, B);
   return (int)cudaGetLastError();
+}
+
+extern "C" int occupancy_accumulate_scan_gather(int* warps) {
+  return warps_per_sm(accumulate_scan_gather_kernel, kGatherThreads, warps);
 }
 
 extern "C" int launch_grouped_running_sum(const void* s, void* T, void* U, int Gs, int W,

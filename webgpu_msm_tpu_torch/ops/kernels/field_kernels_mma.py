@@ -10,10 +10,11 @@ times byte planes:
     mp_cols = M2 @ bytes(m)        M2 [64, 32], Toeplitz in the bytes of p
 
 The columns come out lazy (un-carried, each below 2^21) and are folded with
-carries afterwards. The CUDA kernel `accumulate_scan_mma_kernel`
-(`csrc/mma_kernels.cu`) computes the two products with integer tensor-core
-`mma` on u8 operands; the plain version here follows the same algorithm with
-float64 `torch.matmul`, exact far beyond these sums.
+carries afterwards. The CUDA kernels `accumulate_scan_mma_kernel` and
+`accumulate_scan_gather_mma_kernel` (`csrc/mma_kernels.cu`) compute the two
+products with integer tensor-core `mma` on u8 operands; the plain version
+here follows the same algorithm with float64 `torch.matmul`, exact far
+beyond these sums.
 
 The JAX package forms T as lazy 16-bit columns and multiplies three byte
 planes per column by an M1 of [32, 48]; here T is normalized first, its low

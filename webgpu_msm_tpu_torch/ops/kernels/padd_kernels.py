@@ -1,4 +1,4 @@
-"""Wrappers, plain versions and launch counts of the twelve point kernels.
+"""Wrappers, plain versions and launch counts of the thirteen point kernels.
 
 Each wrapper takes int32 tensors holding u32 bits, at the JAX package's
 layouts (`ops/pallas/padd_kernels.py`). A tensor on the CPU goes to the
@@ -20,7 +20,7 @@ from . import field_kernels_mma
 KERNELS = (
     "to_niels_xy", "accumulate_scan", "padd_masked", "padd", "grouped_running_sum",
     "to_niels", "accumulate_scan_mma", "accumulate_scan_gather", "reduce_finish",
-    "lane_scan", "assemble_buckets", "to_niels_xy_rows",
+    "lane_scan", "assemble_buckets", "to_niels_xy_rows", "accumulate_scan_gather_mma",
 )
 launches: dict[str, int] = {name: 0 for name in KERNELS}
 
@@ -217,7 +217,7 @@ def accumulate_scan(pts: torch.Tensor, ids: torch.Tensor, use_mma: bool = False)
 
 
 # ---------------------------------------------------------------------------
-# 8. accumulate_scan_gather: the scan of every MSM path. Packed rows [M, 24]
+# 8 and 13. accumulate_scan_gather: the scan of every MSM path. Packed rows [M, 24]
 #    (y-x, y+x, 2d*t limbs of each point), perm [L, W] (the row of lane w at
 #    step l) and ids [L, W], with W = K * C lanes, window-major ->
 #    (final_acc [4, 16, W], final_id [W], partial [4, 16, K * B]):
@@ -225,16 +225,18 @@ def accumulate_scan(pts: torch.Tensor, ids: torch.Tensor, use_mma: bool = False)
 #    in-lane partial sum of every bucket whose run ends inside a lane (the
 #    identity elsewhere). Each window's ids must be sorted along its lanes'
 #    steps (lane c of window k holds sorted positions c * L .. c * L + L - 1),
-#    so that a bucket's run ends in at most one place.
+#    so that a bucket's run ends in at most one place. With use_mma every
+#    product takes the matrix-form reduction (the tensor cores on the card).
 # ---------------------------------------------------------------------------
 def accumulate_scan_gather_plain(rows: torch.Tensor, perm: torch.Tensor, ids: torch.Tensor,
-                                 n_windows: int, n_buckets: int):
-    """The row gather, `accumulate_scan_plain`, and the select of the staged
-    accumulators by the buckets' analytic end positions."""
+                                 n_windows: int, n_buckets: int, use_mma: bool = False):
+    """The row gather, `accumulate_scan_plain` (with `use_mma`), and the
+    select of the staged accumulators by the buckets' analytic end
+    positions."""
     (L, W), K, B = ids.shape, n_windows, n_buckets
     C, dev = W // K, ids.device
     pts = rows[perm.reshape(-1).to(torch.int64)].t().reshape(3, 8, L, W).contiguous()
-    final_acc, final_id, staged = accumulate_scan_plain(pts, ids)
+    final_acc, final_id, staged = accumulate_scan_plain(pts, ids, use_mma)
     sorted_ids = (limbs.as_i64(ids) & 0x7FFFFFFF).reshape(L, K, C).permute(1, 2, 0)
     k_idx = torch.arange(K, device=dev).reshape(K, 1)
     hist = torch.bincount((k_idx * B + sorted_ids.reshape(K, C * L)).reshape(-1), minlength=K * B)
@@ -249,23 +251,30 @@ def accumulate_scan_gather_plain(rows: torch.Tensor, perm: torch.Tensor, ids: to
 
 
 def accumulate_scan_gather(rows: torch.Tensor, perm: torch.Tensor, ids: torch.Tensor,
-                           n_windows: int, n_buckets: int):
+                           n_windows: int, n_buckets: int, use_mma: bool = False):
+    """use_mma selects `accumulate_scan_gather_mma`, the same scan with its
+    Montgomery reductions on the tensor cores; the outputs are the same
+    digit for digit. No path sets it: every path runs the CIOS scan."""
     (L, W), M = ids.shape, rows.shape[0]
     _shape("accumulate_scan_gather", rows, (M, 24))
     _shape("accumulate_scan_gather", perm, (L, W))
     if W % n_windows or n_buckets <= 0:
         raise ValueError(f"accumulate_scan_gather: {W} lanes do not split into {n_windows} windows")
     if not _on_card("accumulate_scan_gather", rows, perm, ids):
-        return accumulate_scan_gather_plain(rows, perm, ids, n_windows, n_buckets)
+        return accumulate_scan_gather_plain(rows, perm, ids, n_windows, n_buckets, use_mma)
     dev = rows.device
     partial = identity_planes((n_windows * n_buckets,), dev)
     final_acc = torch.empty((4, 16, W), dtype=torch.int32, device=dev)
     final_id = torch.empty((W,), dtype=torch.int32, device=dev)
-    _launch(
-        "accumulate_scan_gather", "launch_accumulate_scan_gather", rows.device, rows.data_ptr(),
-        perm.data_ptr(), ids.data_ptr(), partial.data_ptr(), final_acc.data_ptr(),
-        final_id.data_ptr(), L, W, W // n_windows, n_buckets,
-    )
+    outs = (partial.data_ptr(), final_acc.data_ptr(), final_id.data_ptr(), L, W, W // n_windows,
+            n_buckets)
+    ins = (rows.data_ptr(), perm.data_ptr(), ids.data_ptr())
+    if use_mma:
+        m1, m2 = field_kernels_mma.const_inputs(dev)
+        _launch("accumulate_scan_gather_mma", "launch_accumulate_scan_gather_mma", dev, *ins,
+                m1.data_ptr(), m2.data_ptr(), *outs)
+    else:
+        _launch("accumulate_scan_gather", "launch_accumulate_scan_gather", dev, *ins, *outs)
     return final_acc, final_id, partial
 
 
