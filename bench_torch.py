@@ -25,6 +25,12 @@ minutes at 2^20 and are cached in `.bench_torch_baseline.json`, which
 names the host (host name, `os.cpu_count()`) and the card; `--skip-baseline`
 leaves them out.
 
+On the card every stage of these calls goes through the stage graphs
+(`webgpu_msm_tpu_torch/utils/cache.py`): the first call at a shape runs
+each stage eagerly and captures it as a CUDA graph, and a warm call copies
+its inputs in and replays the graphs. The first call of each row is kept
+apart from its timed calls, which are warm.
+
 Inputs follow the reference's random-input mode: one base point repeated
 n times with random 253-bit scalars, so the expected result is exact and
 cheap, sum(s_i) * B. Every row must be bit-exact or the run fails; so does

@@ -33,7 +33,6 @@
      `_dispatch_wire` has queued the whole call, without a sync);
    - the planes path: `compute_msm` on the same 2^20 points and scalars as
      lists of `ExtPoint`s and ints (host marshalling timed apart);
-   - `device_affine`: the 2^20 wire call with the affine finish on the card;
    - the fixed-base plan: `MSMPlan` once, then `msm_batch` of three 2^20
      scalar jobs, against the pinned result and the wire path's;
    - `compute_msm_batch` at 2^16 with one shared point array (the plan
@@ -55,9 +54,6 @@
      native engine alone, no kernel), and on the 2^16 lists at 0.2 (the
      GPU share on the planes path);
    - `engine="cpu"` on the 2^16 lists (no kernel);
-   - `engine="naive"` at 2^16: `padd_masked` once a level of its tree sum,
-     (pad_to - 1).bit_length() launches, and no other kernel; its device
-     launches from profiles of one and two ladder steps;
    - `engine="baseline"` at 2^16 (no kernel), with its host bucketing,
      device ladder and host combine timed apart;
    - routing at 2^16: `MSMPlan` on the hybrid engine or with a split keeps
@@ -108,14 +104,30 @@
      repeated-base case at every w of 8-20, signed and unsigned (26 calls,
      printed as one JSON line with each wire plan), and the resident rule
      at w 13-17 on the same inputs;
-   - a trace summary (`utils/trace.py`) of one warm 2^20 wire call.
+   - a trace summary (`utils/trace.py`) of one warm 2^20 wire call;
+   - the stage graphs (`utils/cache.py`) on the wire, planes, plan and
+     resident paths at 2^20 (`graph_ab`): the cold call at a new key, then
+     the graphs and `eager()` in turns on the same inputs, every output
+     digit for digit equal and the expected result; a warm graph call
+     under PyTorch's sync check; per mode the warm wall, host queueing,
+     busy time, idle share, device launches, host launch calls and peak
+     memory; three wire jobs queued before any fetch, each its own
+     result; the graphs' bytes within their limit after every sweep call;
+   - last, as each profiles about 10^5 plain kernels (after which this
+     machine's profiler drops some records): `device_affine`, the
+     2^20 wire call with the affine finish on the card; `engine="naive"`
+     at 2^16: `padd_masked` once a level of its tree sum,
+     (pad_to - 1).bit_length() launches, and no other kernel; its device
+     launches from profiles of one and two ladder steps.
    Every result must be the pinned one or, where none is pinned, the wire
    path's on the same inputs (or the oracle's). Every GPU `compute_msm` path
    launches the gathering scan, `lane_scan` and `assemble_buckets` once a
    batch, and neither `padd_masked`, `padd` nor a tensor-core scan; every
    wire path and plan
    build launches `to_niels_xy_rows` once a base batch and `to_niels_xy`
-   never.
+   never. A stage graph's replay counts the launches its capture
+   recorded; every graph's kernel nodes, by symbol as the CUDA driver
+   reads them from the graph, must equal those launches.
 5. Prints the kernel table as one JSON line, then the result line.
 
 Any failure raises, and the script exits non-zero. It imports nothing of
@@ -432,11 +444,10 @@ def profile_call(label: str, fn, warm_ms: float, top: int = 12):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     dev_us = lambda e: e.self_device_time_total
-    # Kernels only: an aten op's row repeats the device time of its kernels.
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     if not events:
         print(f"profile {label}: the profiler recorded no device kernels")
@@ -530,15 +541,82 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def device_launches(fn) -> int:
-    """Device kernels and copies the profiler records while fn runs."""
+def profile_counts(fn) -> tuple[float, int, int]:
+    """What the profiler records while fn runs: (device busy ms, NaN if no
+    device kernel was recorded; device kernels and copies; host calls of
+    the CUDA runtime that launch a kernel or a graph or queue a copy)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+    events = prof.key_averages()
+    on_device = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in on_device) / 1e3 if on_device else float("nan")
+    host = sum(e.count for e in events if e.device_type == DeviceType.CPU and e.key.startswith("cuda")
+               and any(k in e.key for k in ("Launch", "Memcpy", "Memset")))
+    return busy, sum(e.count for e in on_device), host
+
+
+def graph_ab(label: str, graphs, run, check_out, smi: str) -> dict:
+    """One path with the stage graphs and under `graphs.eager()`, on the
+    same inputs. run(): the path's dispatch, returning its window sums on
+    the card without a sync; check_out(out) fails unless they give the
+    expected result. First the cold call at a new key (every graph dropped;
+    the kernels and constants already loaded), then graph, eager, eager,
+    graph in turns, every output digit for digit equal; a warm graph call
+    under PyTorch's sync check; then, per mode, the peak device memory and
+    a profile. Prints the numbers and returns them."""
+    graphs.clear()
+    out, cold_ms = once_ms(run)
+    check_out(out)
+    captured = graphs.stats()
+    outs, walls, queued, replays = [], {True: [], False: []}, {True: [], False: []}, 0
+    for use_graphs in (True, False, False, True):
+        with contextlib.nullcontext() if use_graphs else graphs.eager():
+            before = graphs.stats()["replays"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            walls[use_graphs].append((time.perf_counter() - t0) * 1e3)
+            queued[use_graphs].append((t1 - t0) * 1e3)
+            replays = graphs.stats()["replays"] - before if use_graphs else replays
+        outs.append(out)
+    for out in outs:
+        check(torch.equal(out, outs[0]), f"{label}: the graph and the eager outputs differ")
+        check_out(out)
+    check(graphs.stats()["captures"] == captured["captures"], f"{label}: a warm call captured")
+    out, _ = queued_without_sync(f"{label} (graphs, warm)", run)
+    check(torch.equal(out, outs[0]), f"{label}: the sync-checked call differs")
+    report = {"cold_new_key_ms": cold_ms, "captures": captured["captures"], "replays_a_call": replays,
+              "graph_bytes": graphs.stats()["bytes"]}
+    for use_graphs in (True, False):
+        with contextlib.nullcontext() if use_graphs else graphs.eager():
+            torch.cuda.reset_peak_memory_stats()
+            once_ms(run)
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            peak_reserved = torch.cuda.max_memory_reserved() / 1e9
+            busy, dev_launches, host_calls = profile_counts(run)
+        warm = min(walls[use_graphs])
+        report["graphs" if use_graphs else "eager"] = {
+            "warm_ms": warm, "walls_ms": walls[use_graphs], "queued_ms": min(queued[use_graphs]),
+            "busy_ms": busy, "idle_share": 1 - busy / warm, "device_launches": dev_launches,
+            "host_launch_calls": host_calls, "peak_gb": peak, "peak_reserved_gb": peak_reserved}
+    g, e = report["graphs"], report["eager"]
+    print(f"{label} graphs/eager: digit-exact over graph, eager, eager, graph; no synchronizing call on a warm "
+          f"graph call; cold at a new key {cold_ms:.1f} ms ({captured['captures']} captures), "
+          f"{replays} replays a warm call, graphs hold {report['graph_bytes'] / 1e9:.3f} GB [{smi}]")
+    for mode, r in (("graphs", g), ("eager", e)):
+        print(f"{label} {mode}: warm {r['warm_ms']:.2f} ms (runs {', '.join(f'{x:.2f}' for x in r['walls_ms'])}), "
+              f"host queueing {r['queued_ms']:.2f} ms, device busy {r['busy_ms']:.2f} ms, idle share "
+              f"{r['idle_share']:.3f}, {r['device_launches']} device launches, {r['host_launch_calls']} host "
+              f"launch/copy calls, peak device memory {r['peak_gb']:.3f} GB allocated (the graphs' pools "
+              f"apart), {r['peak_reserved_gb']:.3f} GB reserved [{smi}]")
+    print(json.dumps({"graph_ab": label, **report, "card": smi}))
+    return report
 
 
 def naive_device_launches(naive_engine, gpu_engine, points, scalars, pad_to, dev) -> int:
@@ -553,10 +631,73 @@ def naive_device_launches(naive_engine, gpu_engine, points, scalars, pad_to, dev
     try:
         for steps in (1, 2):
             naive_engine.SCALAR_BITS = steps
-            counts[steps] = device_launches(lambda: naive_engine._device_naive(pts, sc))
+            counts[steps] = profile_counts(lambda: naive_engine._device_naive(pts, sc))[1]
     finally:
         naive_engine.SCALAR_BITS = full
     return counts[1] + (full - 1) * (counts[2] - counts[1])
+
+
+class _KernelNodeParams(ctypes.Structure):  # the driver's CUDA_KERNEL_NODE_PARAMS_v2
+    _fields_ = [("func", ctypes.c_void_p), ("grid", ctypes.c_uint * 3), ("block", ctypes.c_uint * 3),
+                ("shared_mem_bytes", ctypes.c_uint), ("kernel_params", ctypes.c_void_p),
+                ("extra", ctypes.c_void_p), ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+
+def graph_kernel_nodes(graph) -> dict[str, int]:
+    """{kernel symbol: kernel nodes} of a captured CUDA graph (made with
+    keep_graph=True), as the CUDA driver reads them from the graph."""
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def ok(res: int, call: str) -> None:
+        check(res == 0, f"{call} returned CUresult {res}")
+
+    handle, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    ok(cu.cuGraphGetNodes(handle, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    ok(cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    counts: dict[str, int] = {}
+    for node in nodes:
+        kind = ctypes.c_int()
+        ok(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)), "cuGraphNodeGetType")
+        if kind.value != 0:  # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        params, name = _KernelNodeParams(), ctypes.c_char_p()
+        ok(cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), ctypes.byref(params)),
+           "cuGraphKernelNodeGetParams")
+        if params.func:
+            ok(cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(params.func)), "cuFuncGetName")
+        else:
+            ok(cu.cuKernelGetName(ctypes.byref(name), ctypes.c_void_p(params.kern)), "cuKernelGetName")
+        counts[name.value.decode()] = counts.get(name.value.decode(), 0) + 1
+    return counts
+
+
+def hold_graphs_to_their_kernels(stage_graphs, pk) -> list:
+    """From here on, every stage graph is captured with its template kept
+    and checked before it is instantiated: its kernel nodes, by symbol as
+    the driver reads them, must equal the wrapper launches that its capture
+    recorded, which each replay of it adds to the counts. (The profiler is
+    not the check: on this machine it drops some kernel records of graph
+    replays, PERF.md, PR 13.) Returns [(stage, {kernel: nodes})] of the
+    graphs checked."""
+    real_graph, real_capture = torch.cuda.CUDAGraph, stage_graphs._capture
+    checked = []
+
+    def capture(fn, inputs, device):
+        before = dict(pk.launches)
+        graph, output = real_capture(fn, inputs, device)
+        recorded = {k: pk.launches[k] - before[k] for k in pk.KERNELS}
+        nodes = graph_kernel_nodes(graph)
+        on_graph = {k: nodes.pop(f"{k}_kernel", 0) for k in pk.KERNELS}
+        check(on_graph == recorded, f"a stage graph's kernel nodes {on_graph} differ from the launches its "
+                                    f"capture recorded {recorded}")
+        graph.instantiate()
+        checked.append({k: v for k, v in on_graph.items() if v})
+        return graph, output
+
+    torch.cuda.CUDAGraph = lambda: real_graph(keep_graph=True)
+    stage_graphs._capture = capture
+    return checked
 
 
 def drive(label: str, pk, fn, must: tuple, must_not: tuple, batches: int = 0,
@@ -566,7 +707,9 @@ def drive(label: str, pk, fn, must: tuple, must_not: tuple, batches: int = 0,
     unless every kernel in `must` was launched and none in `must_not`, and,
     for a `compute_msm` path of `batches` batch stages, unless each batch
     kernel was launched once a batch; with `conversions`, unless the wire
-    input stage ran that many times (once a base batch)."""
+    input stage ran that many times (once a base batch). A stage graph's
+    replay counts the launches its capture recorded, which
+    `hold_graphs_to_their_kernels` holds to the graph's kernel nodes."""
     pk.reset_launch_counts()
     out, ms = once_ms(fn)
     counts = dict(pk.launches)
@@ -602,6 +745,7 @@ def main() -> int:
     from webgpu_msm_tpu_torch.parallel import (ShardedFixedBasePlan, default_mesh, distributed,
                                                msm_window_sums_sharded, scaling)
     from webgpu_msm_tpu_torch.parallel.msm_sharded import window_sums_affine
+    from webgpu_msm_tpu_torch.utils import cache as stage_graphs
     from webgpu_msm_tpu_torch.utils import convert, fixtures, trace
     from webgpu_msm_tpu_torch.utils.interop import affine_from_planes
 
@@ -731,6 +875,7 @@ def main() -> int:
 
     # 4. the paths. Each is driven with the counts set to 0 just before and
     # read just after; launches made above do not count.
+    graphs_checked = hold_graphs_to_their_kernels(stage_graphs, pk)
     cfg = MSMConfig()
     others = lambda *names: tuple(k for k in pk.KERNELS if k not in names)
     as_xy = lambda res: (res.x, res.y)
@@ -777,6 +922,15 @@ def main() -> int:
                   f"device busy {busy_ms:.2f} ms, {n_launches} device launches [{smi}]")
             print("compute_msm 2^20 warm host dispatch by step: "
                   + ", ".join(f"{k} {v:.1f} ms" for k, v in split.items()))
+            print(f"compute_msm 2^20 stage graphs: {stage_graphs.stats()}")
+            with stage_graphs.eager():
+                res, dispatch_ms, warm_ms, split = host_dispatch(api, gpu_engine, wire)
+                check(as_xy(res) == PINNED[power], "2^20 eager call differs from PINNED")
+            print(f"compute_msm 2^20 eager (no graphs): host dispatch {dispatch_ms:.1f} ms, wall {warm_ms:.1f} "
+                  "ms; by step: " + ", ".join(f"{k} {v:.1f} ms" for k, v in split.items()) + f" [{smi}]")
+            w20 = cfg.resolved_wire_plan(N)[0]
+            graph_ab("wire 2^20", stage_graphs, lambda: gpu_engine._dispatch_wire(pw, sw, cfg, dev, True)[0],
+                     lambda out: check(affine_of(out, w20) == PINNED[20], "wire 2^20: differs from PINNED"), smi)
     for power in sorted(PINNED):  # the later phases run 2^16 and 2^20 only
         if power not in (16, 20):
             del inputs[power]
@@ -794,23 +948,22 @@ def main() -> int:
     print(f"planes path 2^20: equals PINNED[20]; launches {counts}")
     print(f"planes path 2^20 wall: {ms / 1e3:.3f} s ({rate(ms)}), of which host marshalling of "
           f"the lists about {marshal_s:.3f} s (timed apart) [{smi}]")
-
-    # 4c. device_affine: the wire call with the affine finish on the card
-    affine = lambda: compute_msm(pts, sc, config=MSMConfig(device_affine=True), device=dev)
-    res, cold_ms, counts = drive("device_affine 2^20", pk, affine, WIRE_KERNELS, others(*WIRE_KERNELS),
-                                 n_batches(N), n_batches(N))
-    check(as_xy(res) == PINNED[20], "device_affine 2^20: result differs from PINNED")
-    res, warm_ms = once_ms(affine)
-    check(as_xy(res) == PINNED[20], "device_affine 2^20 warm call differs from PINNED")
-    print(f"device_affine 2^20: equals PINNED[20]; launches {counts}")
-    print(f"device_affine 2^20 wall: cold {cold_ms / 1e3:.3f} s ({rate(cold_ms)}), "
-          f"warm {warm_ms / 1e3:.3f} s ({rate(warm_ms)}) [{smi}]")
-    profile_call("device_affine 2^20", affine, warm_ms, top=4)
+    # its device part, on the lists marshalled once: the planes batches from
+    # host arrays at the wire plan
+    w_pl, C_pl, L_pl, pad_pl = gpu_engine._padded_plan(cfg, N)
+    planes_np, words_np = gpu_engine.marshal_points(points, pad_pl), gpu_engine.marshal_scalars(scalars, pad_pl)
+    graph_ab("planes 2^20", stage_graphs,
+             lambda: gpu_engine._device_msm(planes_np, words_np, window_size=w_pl, n_chunks=C_pl, chunk_len=L_pl,
+                                            signed_digits=gpu_engine._signed_ok(cfg, words_np), device=dev),
+             lambda out: check(affine_of(out, w_pl) == PINNED[20], "planes 2^20: differs from PINNED"), smi)
+    del planes_np, words_np
 
     # 4d. the fixed-base plan: bases once, then three scalar jobs
     jobs = [sc] + [convert.bigints_to_u32_be(fixtures.random_scalars(N, seed=seed))
                    for seed in (2020, 3020)]
-    want = [PINNED[20]] + [as_xy(compute_msm(pts, s, config=cfg, device=dev)) for s in jobs[1:]]
+    with stage_graphs.eager():  # the references, without the graphs
+        want = [PINNED[20]] + [as_xy(compute_msm(pts, s, config=cfg, device=dev)) for s in jobs[1:]]
+    check(len(set(want)) == 3, "the three jobs' results are not distinct")
     plan, build_ms, counts = drive("plan build 2^20", pk, lambda: MSMPlan(pts, config=cfg, device=dev),
                                    ("to_niels_xy_rows",), others("to_niels_xy_rows"),
                                    conversions=n_batches(N))
@@ -825,7 +978,18 @@ def main() -> int:
     print(f"plan 2^20 wall: build {build_ms / 1e3:.3f} s; msm_batch of 3 jobs {batch_ms / 1e3:.3f} s "
           f"({batch_ms / 3e3:.3f} s a job, {rate(batch_ms / 3)}); one msm {one_ms / 1e3:.3f} s [{smi}]")
     profile_call("plan job 2^20", lambda: plan.msm(jobs[1]), one_ms, top=6)
+    graph_ab("plan job 2^20", stage_graphs, lambda: plan._plan.dispatch(jobs[1])[0],
+             lambda out: check(affine_of(out, plan._plan.w) == want[1], "plan job 2^20: differs"), smi)
     del plan
+    # Three wire jobs queued before any is fetched: each finish's window sums
+    # are cloned right after its replay, so each job returns its own result.
+    got, ms, counts = drive("3 queued wire jobs 2^20", pk,
+                            lambda: gpu_engine.msm_affine_batch_wire([(pts, s) for s in jobs], cfg, dev, True),
+                            WIRE_KERNELS, others(*WIRE_KERNELS), len(jobs) * n_batches(N),
+                            len(jobs) * n_batches(N))
+    check(list(got) == want, "3 queued wire jobs 2^20: results differ from the eager calls'")
+    print(f"3 queued wire jobs 2^20: each returns its own result (PINNED[20] and the eager calls'); "
+          f"{ms / 1e3:.3f} s; launches {counts}; stage graphs {stage_graphs.stats()} [{smi}]")
 
     # 4e. compute_msm_batch at 2^16: shared bases (the plan branch), then
     # distinct arrays (the batched wire path)
@@ -985,23 +1149,6 @@ def main() -> int:
           f"(w {cfg.resolved_window_size_native(n16)}, {cpu_engine.resolved_threads(cfg, False)} threads) "
           f"[host {os.cpu_count()} CPUs]")
 
-    # 4l. the naive engine at 2^16: a 256-step ladder in plain PyTorch on the
-    # card, then the tree sum, one padd_masked launch a level
-    pad16 = max(-(-n16 // 128) * 128, 128)
-    levels16 = (pad16 - 1).bit_length()
-    res, naive_ms, counts = drive("naive 2^16", pk,
-                                  lambda: compute_msm(points16, scalars16, device=dev, engine="naive"),
-                                  ("padd_masked",), others("padd_masked"))
-    check(as_xy(res) == PINNED[16], "naive 2^16: result differs from PINNED")
-    check(counts["padd_masked"] == levels16,
-          f"naive 2^16: padd_masked launched {counts['padd_masked']} times, not {levels16}")
-    rows["padd_masked"]["launches"] = counts["padd_masked"]
-    naive_launches = naive_device_launches(naive_engine, gpu_engine, points16, scalars16, pad16, dev)
-    print(f"naive 2^16: equals PINNED[16]; padd_masked {counts['padd_masked']} launches "
-          f"((pad_to - 1).bit_length() for pad_to {pad16}), no other kernel; wall {naive_ms / 1e3:.3f} s, "
-          f"{naive_launches} device launches (profiler counts of one and two ladder steps, extrapolated "
-          f"to {naive_engine.SCALAR_BITS}) [{smi}]")
-
     # 4m. the baseline at 2^16: host bucketing, the 16-bit ladder on the card
     # (plain PyTorch), host window sums and combine, each step timed apart
     steps = {"host bucketing": (baseline_engine, "_host_bucket_entries"),
@@ -1078,6 +1225,9 @@ def main() -> int:
     print(f"resident 2^20 wall: cold {cold_ms:.1f} ms, warm {warm_ms:.1f} ms ({rate(warm_ms)}); host queueing "
           f"{queued_ms:.1f} ms; device busy {busy_ms:.2f} ms, {n_launches} device launches; peak device "
           f"memory {peak_gb:.3f} GB [{smi}]")
+    graph_ab("resident 2^20", stage_graphs, resident,
+             lambda out: check(affine_of(out, w_res) == PINNED[20], "resident 2^20: differs from PINNED"), smi)
+    resident_warm_ms = once_ms(resident)[1]  # the warm call, for the collective model (4p)
     # msm_window_sums on the Niels planes of the same points: one batch added
     # into no carry; its window sums equal the staged call's as points
     sums = lambda: pippenger.msm_window_sums(pk.to_niels(pts_t), sc_t, window_size=w_res, n_chunks=C_res,
@@ -1192,7 +1342,7 @@ def main() -> int:
     # worker process, virtual meshes of D 2 and 4 shards on cuda:0 in both
     # collective modes, and the sharded fixed-base plan
     t_sharded = time.perf_counter()
-    resident_s = warm_ms / 1e3
+    resident_s = resident_warm_ms / 1e3
     niels = pk.to_niels(pts_t)
     batch_count = lambda counts, D, reductions: (
         all(counts[k] == D for k in BATCH_KERNELS)
@@ -1322,10 +1472,18 @@ def main() -> int:
     # repeated-base case at every supported w, signed and unsigned, with the
     # wire plan's batches; then the resident rule at w 13-17 signed on the
     # same inputs. Each call once for the launch counts and the result, then
-    # timed warm.
+    # timed warm; after each, the stage graphs must hold at most their limit.
     t_sweep = time.perf_counter()
     pw_b, sw_b, want_b = benchmark._wire_case(N)
     sweep = []
+    stage_graphs.clear()
+    graph_limit = stage_graphs.limit(dev)
+
+    def within_limit(label: str) -> dict:
+        held = stage_graphs.stats()
+        check(held["bytes"] <= graph_limit, f"{label}: the stage graphs hold {held['bytes']} bytes, "
+                                            f"past their limit {graph_limit}")
+        return held
     for digits_signed in (True, False):
         for w in SUPPORTED_WINDOW_SIZES:
             c = MSMConfig(window_size=w, signed_digits=digits_signed)
@@ -1338,9 +1496,11 @@ def main() -> int:
             check(as_xy(res) == want_b, f"{label}: result differs from sum(s) * B")
             res, ms = once_ms(call)
             check(as_xy(res) == want_b, f"{label}: warm result differs from sum(s) * B")
+            held = within_limit(label)
             sweep.append({"w": w, "digits": "signed" if digits_signed else "unsigned", "wall_ms": ms,
                           "first_ms": first_ms, "plan": list(plan), "batches": batches,
-                          "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+                          "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                          "graphs_held": held["graphs"], "graph_gb": held["bytes"] / 1e9})
     planes_b = np.empty((3, 16, N), dtype=np.uint32)
     for k in range(3):  # x, y, t of the wire rows as plain digit planes
         coord = convert.be_rows_to_words_le(pw_b[:, 8 * k : 8 * k + 8])
@@ -1354,23 +1514,68 @@ def main() -> int:
         out, first_ms = once_ms(call)
         check(affine_of(out, w) == want_b, f"resident rule w {w}: result differs from sum(s) * B")
         _, ms = once_ms(call)
+        held = within_limit(f"resident rule w {w}")
         resident_sweep.append({"w": w, "digits": "signed", "ms": ms, "first_ms": first_ms,
-                               "plan": [w, C_res, L_res]})
+                               "plan": [w, C_res, L_res], "graph_gb": held["bytes"] / 1e9})
     del pts_t, sc_t
     best = min(resident_sweep, key=lambda r: r["ms"])
     print(f"window sweep 2^20: all {len(sweep)} wire calls equal sum(s) * B; resident rule fastest at "
           f"w {best['w']} ({best['ms']:.1f} ms) [{smi}]")
+    held = stage_graphs.stats()
+    print(f"window sweep stage graphs, limit {graph_limit / 1e9:.3f} GB ({stage_graphs.MEMORY_SHARE} of the "
+          f"card), held within it after every call: {held['captures']} captures, {held['evictions']} "
+          f"evictions, {held['uncaptured']} first calls uncaptured, {held['graphs']} held at the end "
+          f"({held['bytes'] / 1e9:.3f} GB), most held at once {held['peak_bytes'] / 1e9:.3f} GB (a new "
+          f"graph before the limit dropped others); eager past half the limit: {held['too_large']}; peak "
+          f"device memory of a sweep call {max(r['peak_gb'] for r in sweep):.3f} GB allocated [{smi}]")
     print(json.dumps({"window_sweep": sweep, "resident_sweep": resident_sweep, "card": smi}))
     print(f"phase window sweep: {time.perf_counter() - t_sweep:.1f} s")
 
     # 4r. the trace of one warm wire call: the JAX engine's phases, host clock
+    # (one call first: the sweep may have dropped its stage graphs)
+    check(as_xy(compute_msm(pts, sc, config=cfg, device=dev)) == PINNED[20], "wire call differs from PINNED")
     trace.reset()
     res = compute_msm(pts, sc, config=cfg, device=dev)
     check(as_xy(res) == PINNED[20], "traced wire call differs from PINNED")
     print("trace summary (warm wire 2^20; host clock, 'device msm (wire)' is the queueing): "
           + "; ".join(" ".join(line.split()) for line in trace.summary().splitlines()))
 
+    # 4s. device_affine: the wire call with the affine finish on the card.
+    # It and the naive engine (4t) run last: each profiles about 10^5
+    # plain kernels, after which later profiles on this machine drop some
+    # of their records (PERF.md, PR 13), which the other profiles count.
+    affine = lambda: compute_msm(pts, sc, config=MSMConfig(device_affine=True), device=dev)
+    res, cold_ms, counts = drive("device_affine 2^20", pk, affine, WIRE_KERNELS, others(*WIRE_KERNELS),
+                                 n_batches(N), n_batches(N))
+    check(as_xy(res) == PINNED[20], "device_affine 2^20: result differs from PINNED")
+    res, warm_ms = once_ms(affine)
+    check(as_xy(res) == PINNED[20], "device_affine 2^20 warm call differs from PINNED")
+    print(f"device_affine 2^20: equals PINNED[20]; launches {counts}")
+    print(f"device_affine 2^20 wall: cold {cold_ms / 1e3:.3f} s ({rate(cold_ms)}), "
+          f"warm {warm_ms / 1e3:.3f} s ({rate(warm_ms)}) [{smi}]")
+    profile_call("device_affine 2^20", affine, warm_ms, top=4)
+
+    # 4t. the naive engine at 2^16: a 256-step ladder in plain PyTorch on the
+    # card, then the tree sum, one padd_masked launch a level
+    pad16 = max(-(-n16 // 128) * 128, 128)
+    levels16 = (pad16 - 1).bit_length()
+    res, naive_ms, counts = drive("naive 2^16", pk,
+                                  lambda: compute_msm(points16, scalars16, device=dev, engine="naive"),
+                                  ("padd_masked",), others("padd_masked"))
+    check(as_xy(res) == PINNED[16], "naive 2^16: result differs from PINNED")
+    check(counts["padd_masked"] == levels16,
+          f"naive 2^16: padd_masked launched {counts['padd_masked']} times, not {levels16}")
+    rows["padd_masked"]["launches"] = counts["padd_masked"]
+    naive_launches = naive_device_launches(naive_engine, gpu_engine, points16, scalars16, pad16, dev)
+    print(f"naive 2^16: equals PINNED[16]; padd_masked {counts['padd_masked']} launches "
+          f"((pad_to - 1).bit_length() for pad_to {pad16}), no other kernel; wall {naive_ms / 1e3:.3f} s, "
+          f"{naive_launches} device launches (profiler counts of one and two ladder steps, extrapolated "
+          f"to {naive_engine.SCALAR_BITS}) [{smi}]")
+
     # 5. summary lines
+    check(graphs_checked, "no stage graph was captured")
+    print(f"stage graphs: {len(graphs_checked)} captured, each one's kernel nodes (read from the graph by the "
+          f"CUDA driver) equal to the launches its capture recorded; e.g. {graphs_checked[0]}")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the builds included")
     print("kernels: " + ", ".join(pk.KERNELS) + "; at the resident shapes: "
           + ", ".join(RESIDENT_KERNELS + ("accumulate_scan_gather_mma",))

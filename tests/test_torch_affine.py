@@ -78,8 +78,8 @@ def test_finish_affine_matches_jax_and_oracle(monkeypatch):
             carry = joc.add(carry, pts[k * B + b])
             total = joc.add(total, carry)
         assert (wsums[k].x, wsums[k].y) == joc.to_affine(total) and wsums[k].z == 1
-    assert gpu_engine._call_finish(planes_from_numpy(bs), True).shape == (2, 16, K)
-    assert gpu_engine._call_finish(planes_from_numpy(bs), False).shape == (4, 16, K)
+    assert gpu_engine._call_finish(planes_from_numpy(bs), 6, False, True).shape == (2, 16, K)
+    assert gpu_engine._call_finish(planes_from_numpy(bs), 6, False, False).shape == (4, 16, K)
 
 
 def test_device_affine_compute_msm_matches_jax_and_oracle(monkeypatch):

@@ -1,6 +1,7 @@
-"""The port on the card: each CUDA kernel against its plain version, and
+"""The port on the card: each CUDA kernel against its plain version,
 `compute_msm` (wire rows and lists, and the hybrid, naive and baseline
-engines) and `MSMPlan` against the port's own oracle.
+engines) and `MSMPlan` against the port's own oracle, and the stage graphs
+(`utils/cache.py`) against the eager stages.
 
 Every test here is marked `gpu` and skips without a CUDA device. The file
 imports no JAX, because the GPU machine has none; run it there with
@@ -9,6 +10,8 @@ imports no JAX, because the GPU machine has none; run it there with
 
 (`--noconftest`: tests/conftest.py sets up JAX for the other files.)
 """
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -18,7 +21,7 @@ from webgpu_msm_tpu_torch.engines import gpu_engine
 from webgpu_msm_tpu_torch.ops import pippenger
 from webgpu_msm_tpu_torch.ops.kernels import padd_kernels as pk
 from webgpu_msm_tpu_torch.oracle import curve, msm
-from webgpu_msm_tpu_torch.utils import convert, fixtures
+from webgpu_msm_tpu_torch.utils import cache, convert, fixtures
 from webgpu_msm_tpu_torch.utils.interop import (affine_from_planes, mont_planes_from_points, planes_from_numpy,
                                                planes_to_numpy)
 
@@ -447,3 +450,229 @@ def test_reduce_and_finish_group_sizes_on_card(cuda, Gs):
     assert affine_from_planes(planes_to_numpy(plain), mont=False) == want
     sums = [msm.bucket_reduce(pts[k * B : (k + 1) * B]) for k in range(K)]
     assert want == [curve.to_affine(s) for s in sums]
+
+
+# ---------------------------------------------------------------------------
+# The stage graphs (utils/cache.py): each stage captured at its first call
+# and replayed after, against the eager stages (`cache.eager()`).
+# ---------------------------------------------------------------------------
+
+
+def _pinned(arr):
+    return planes_from_numpy(arr).pin_memory()
+
+
+def _signed_scalar_rows(rng, m):
+    """[m, 8] BE scalar rows below 2^253 (signed digits apply)."""
+    sc = rng.integers(0, 1 << 32, size=(m, 8), dtype=np.uint32)
+    sc[:, 0] &= (1 << 29) - 1
+    return sc
+
+
+def _stage_cases(shape, rng, dev):
+    """Each stage at the 2^20 wire plan (w 13 signed, C 2048 x L 128) or at
+    the device-resident plan (w 16 signed, C 2048 x L 512): (name, fn,
+    statics, two argument tuples), the second carrying the first's output
+    where the stage takes a carry."""
+    w, C, L = (13, 2048, 128) if shape == "wire" else (16, 2048, 512)
+    M = C * L
+    static = dict(window_size=w, n_chunks=C, chunk_len=L, signed_digits=True)
+    carry = gpu_engine._identity_carry(w, True, dev)
+    suffix = f"_w{w}_c{C}x{L}_s1"
+    with cache.eager():
+        if shape == "wire":
+            xy = [_pinned(raw_xy_rows(rng, M)) for _ in range(2)]
+            sc = [_pinned(_signed_scalar_rows(rng, M)) for _ in range(2)]
+            rows = [pk.to_niels_xy_rows(x.to(dev)) for x in xy]
+            c1 = gpu_engine._call_stage("wire_batch" + suffix, gpu_engine._wire_batch_impl, static,
+                                        xy[0], sc[0], carry)
+            cases = [
+                ("wire_batch" + suffix, gpu_engine._wire_batch_impl, static,
+                 [(xy[0], sc[0], carry), (xy[1], sc[1], c1)]),
+                (f"plan_niels_m{M}", pk.to_niels_xy_rows, {}, [(x.to(dev),) for x in xy]),
+                ("fixed_batch" + suffix, gpu_engine._fixed_batch_impl, static,
+                 [(rows[0], sc[0], carry), (rows[1], sc[1], c1)]),
+            ]
+        else:
+            planes = [planes_from_numpy(rand_planes(rng, (3,), M), dev) for _ in range(2)]
+            words = [planes_from_numpy(_signed_scalar_rows(rng, M)[:, ::-1].T, dev) for _ in range(2)]
+            c1 = gpu_engine._batch_planes_impl(planes[0], words[0], carry, **static)
+            cases = [("batch_planes" + suffix, gpu_engine._batch_planes_impl, static,
+                      [(planes[0], words[0], carry), (planes[1], words[1], c1)])]
+        cases.append((f"finish_w{w}_s1", gpu_engine._finish_impl, {}, [(c1,), (carry,)]))
+    return cases
+
+
+@pytest.mark.parametrize("shape", ["wire", "resident"])
+def test_stage_replays_equal_eager_runs_on_card(cuda, shape):
+    """Every stage at a main path's shapes: the capturing call, a replay on
+    the same arguments and a replay on others, each digit for digit equal
+    to the eager stage on the same arguments."""
+    cache.clear()
+    cases = _stage_cases(shape, np.random.default_rng(17), cuda)
+    for name, fn, static, arg_sets in cases:
+        with cache.eager():
+            want = [gpu_engine._call_stage(name, fn, static, *args) for args in arg_sets]
+        got = [gpu_engine._call_stage(name, fn, static, *args)
+               for args in (arg_sets[0], arg_sets[0], arg_sets[1])]
+        for g, w in zip(got, [want[0], want[0], want[1]]):
+            assert torch.equal(g, w), name
+        assert not torch.equal(want[0], want[1]), name
+    s = cache.stats()
+    assert (s["captures"], s["replays"]) == (len(cases), 2 * len(cases))
+
+
+def test_queued_jobs_each_return_their_own_result_on_card(cuda):
+    """Three jobs with distinct scalars queued before any is fetched, on the
+    wire path, the plan and the planes path: a replay writes into its
+    graph's own outputs, so each job's window sums are cloned right after
+    its finish. Each result equals the job's eager call."""
+    n, cfg = 1 << 12, MSMConfig(window_size=10, n_chunks=64, chunk_len=16)  # four batches
+    pts = fixtures.distinct_points_fast(n, seed=71)
+    pw = fixtures.wire_points(pts)
+    jobs = [fixtures.random_scalars(n, seed=81 + j) for j in range(3)]
+    jobs_be = [convert.bigints_to_u32_be(s) for s in jobs]
+    with cache.eager():
+        want = [gpu_engine.msm_affine_wire(pw, s, cfg, cuda) for s in jobs_be]
+    assert len(set(want)) == 3
+    cache.clear()
+    for _ in range(2):  # the first round captures, the second only replays
+        assert gpu_engine.msm_affine_batch_wire([(pw, s) for s in jobs_be], cfg, cuda) == want
+        assert gpu_engine.WirePlan(pw, cfg, cuda).msm_affine_batch(jobs_be) == want
+        assert gpu_engine.msm_affine_batch(list(zip([pts] * 3, jobs)), cfg, cuda) == want
+    assert cache.stats()["replays"] > 0
+
+
+def test_warm_calls_replay_and_capture_nothing_on_card(cuda):
+    """The first call captures the wire batch (then replays it for the
+    other three batches) and the finish; a later call captures nothing,
+    replays once a stage, and counts the launches of the eager call."""
+    n, cfg = 1 << 12, MSMConfig(window_size=10, n_chunks=64, chunk_len=16)
+    pts = fixtures.distinct_points_fast(n, seed=72)
+    pw, sw = fixtures.wire_points(pts), convert.bigints_to_u32_be(fixtures.random_scalars(n, seed=82))
+    pk.reset_launch_counts()
+    with cache.eager():
+        want = compute_msm(pw, sw, config=cfg, device=cuda)
+    eager_counts = dict(pk.launches)
+    cache.clear()
+    for call in range(3):
+        pk.reset_launch_counts()
+        assert compute_msm(pw, sw, config=cfg, device=cuda) == want
+        assert pk.launches == eager_counts
+        s = cache.stats()
+        assert (s["graphs"], s["captures"]) == (2, 2)
+        assert s["replays"] == 3 + 5 * call
+    assert s["bytes"] > 0
+
+
+def test_warm_calls_do_not_synchronize_on_card(cuda):
+    """A warm wire dispatch, plan job dispatch and device-resident call queue
+    their copies and replays without waiting for the device (PyTorch's sync
+    check raises on a synchronizing call)."""
+    n, cfg = 1 << 12, MSMConfig(window_size=10, n_chunks=64, chunk_len=16)
+    pts = fixtures.distinct_points_fast(n, seed=73)
+    scalars = fixtures.random_scalars(n, seed=83)
+    pw, sw = fixtures.wire_points(pts), convert.bigints_to_u32_be(scalars)
+    plan = gpu_engine.WirePlan(pw, cfg, cuda)
+    planes = planes_from_numpy(gpu_engine.marshal_points(pts, n), cuda)
+    words = planes_from_numpy(gpu_engine.marshal_scalars(scalars, n), cuda)
+    w, (C, L) = cfg.resolved_window_size(n), cfg.resolved_chunking(n)
+    calls = {
+        "wire": lambda: gpu_engine._dispatch_wire(pw, sw, cfg, cuda)[0],
+        "plan job": lambda: plan.dispatch(sw)[0],
+        "resident": lambda: gpu_engine._device_msm(planes, words, window_size=w, n_chunks=C, chunk_len=L,
+                                                   signed_digits=True),
+    }
+    want = {k: fn() for k, fn in calls.items()}  # the captures
+    torch.cuda.synchronize()
+    for label, fn in calls.items():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert torch.equal(out, want[label]), label
+
+
+def _wire_case(n, seed, **config):
+    cfg = MSMConfig(**config)
+    pts = fixtures.distinct_points_fast(n, seed=seed)
+    pw, sw = fixtures.wire_points(pts), convert.bigints_to_u32_be(fixtures.random_scalars(n, seed=seed + 10))
+    with cache.eager():
+        want = compute_msm(pw, sw, config=cfg, device="cuda")
+    return lambda: compute_msm(pw, sw, config=cfg, device="cuda"), want
+
+
+def test_replayed_launch_counts_equal_the_profiled_kernels_on_card(cuda):
+    """A replay runs its kernels without calling their wrappers: the counts
+    the cache adds for it equal the kernels the profiler records, by symbol,
+    on the capturing call and on a call that only replays."""
+    from torch.profiler import ProfilerActivity, profile
+
+    call, want = _wire_case(1 << 12, 74, window_size=10, n_chunks=64, chunk_len=16)  # four batches
+    cache.clear()
+    for replays in (3, 5):  # the first call replays the batch graph thrice, a warm one every stage
+        before = cache.stats()["replays"]
+        pk.reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            assert call() == want
+            torch.cuda.synchronize()
+        assert pk.profiled_launches(prof.events()) == pk.launches
+        assert pk.launches["accumulate_scan_gather"] == 4 and pk.launches["reduce_finish"] == 1
+        assert cache.stats()["replays"] - before == replays
+
+
+def test_capture_beside_a_thread_pinning_host_memory_on_card(cuda):
+    """A capture bars only its own thread from the calls that are illegal
+    while capturing: another thread allocating and freeing pinned host
+    memory all the while (as a data loader does) goes on, and so do the
+    captures."""
+    call, want = _wire_case(1 << 12, 75, window_size=10, n_chunks=64, chunk_len=16)
+    stop, errors, pinned = threading.Event(), [], [0]
+
+    def pin():
+        held = []
+        try:
+            while not stop.is_set():
+                held.append(torch.empty(1 << 16, dtype=torch.uint8, pin_memory=True))
+                pinned[0] += 1
+                if len(held) == 256:  # free them, so that the next ones are new allocations
+                    held.clear()
+                    torch._C._host_emptyCache()
+        except Exception as e:  # noqa: BLE001 (reported below)
+            errors.append(e)
+
+    thread = threading.Thread(target=pin)
+    thread.start()
+    try:
+        for _ in range(3):
+            cache.clear()
+            before = pinned[0]
+            assert call() == want
+            assert cache.stats()["captures"] == 2 and pinned[0] > before
+    finally:
+        stop.set()
+        thread.join()
+    assert not errors
+
+
+def test_stage_graphs_hold_at_most_their_limit_after_a_w20_call_on_card(cuda, monkeypatch):
+    """At w 20 (K 13 windows of 2^19 + 1 buckets) the graphs stay within the
+    limit after every call; with a limit under twice the batch graph, that
+    stage is not kept and runs eagerly, and every result stays the eager
+    one."""
+    call, want = _wire_case(1 << 12, 76, window_size=20, n_chunks=64, chunk_len=16)
+    cache.clear()
+    for _ in range(2):
+        assert call() == want
+        assert 0 < cache.stats()["bytes"] <= cache.limit(cuda)
+    sizes = {k[0]: g.nbytes for k, g in cache.CACHE._graphs.items()}
+    sizes.update((k[0], nbytes) for k, nbytes in cache.CACHE.too_large.items())
+    assert sorted(sizes) == ["finish_w20_s1", "wire_batch_w20_c64x16_s1"] and cache.stats()["captures"] == 2
+    total = torch.cuda.get_device_properties(cuda).total_memory
+    monkeypatch.setattr(cache, "MEMORY_SHARE", 1.5 * sizes["wire_batch_w20_c64x16_s1"] / total)
+    cache.clear()
+    for _ in range(2):
+        assert call() == want
+        assert cache.stats()["bytes"] <= cache.limit(cuda)
+    assert "wire_batch_w20_c64x16_s1" in cache.stats()["too_large"]

@@ -1,0 +1,301 @@
+"""The stage programs: `gpu_engine._call_stage` and `utils/cache.py`.
+
+(a) The port's stage calls carry the JAX engine's stage names, statics and
+    argument shapes: both engines' `_call_stage` are replaced by a recorder
+    that returns its last argument (the carry, or the plan's input rows), so
+    nothing is compiled and nothing runs past the dispatch.
+(b) On the CPU `stage_call` runs the stage as it is.
+(c) The cache's bookkeeping, with a stub in place of `torch.cuda.CUDAGraph`
+    and the CPU standing in for the card: keys, replays, launch counts,
+    the memory limit, `eager()`, and a capture that fails.
+
+The graphs themselves run on the card: tests/test_torch_gpu.py.
+"""
+import contextlib
+
+import numpy as np
+import pytest
+import torch
+
+from webgpu_msm_tpu import config as jconfig
+from webgpu_msm_tpu.engines import tpu_engine as te
+
+from webgpu_msm_tpu_torch import MSMConfig
+from webgpu_msm_tpu_torch.engines import gpu_engine
+from webgpu_msm_tpu_torch.ops.kernels import padd_kernels as pk
+from webgpu_msm_tpu_torch.utils import cache, convert, fixtures
+
+from torch_threads import one_torch_thread  # noqa: F401  (one PyTorch CPU thread)
+
+N = 40  # three batches of 16, the last one padded
+STATIC = dict(window_size=8, n_chunks=4, chunk_len=4)
+CPU = torch.device("cpu")
+
+
+def recorder(calls):
+    def call_stage(name, fn, static_kw, *args, **kw):
+        calls.append((name, dict(static_kw), [tuple(a.shape) for a in args],
+                      [str(a.dtype).split(".")[-1] for a in args]))
+        return args[-1]
+    return call_stage
+
+
+def dispatch_both(path, signed, monkeypatch):
+    """The JAX engine's and the port's stage calls for one dispatch."""
+    pts = fixtures.distinct_points_fast(N, seed=90)
+    scalars = fixtures.random_scalars(N, seed=91)
+    pw, sw = fixtures.wire_points(pts), convert.bigints_to_u32_be(scalars)
+    jcfg = jconfig.MSMConfig(signed_digits=signed, **STATIC)
+    cfg = MSMConfig(signed_digits=signed, **STATIC)
+    calls = {"jax": [], "port": []}
+    monkeypatch.setattr(te, "_call_stage", recorder(calls["jax"]))
+    monkeypatch.setattr(gpu_engine, "_call_stage", recorder(calls["port"]))
+    if path == "wire":
+        te._dispatch_wire(pw, sw, jcfg)
+        gpu_engine._dispatch_wire(pw, sw, cfg, CPU)
+    elif path == "plan":
+        te.WirePlan(pw, jcfg).dispatch(sw)
+        gpu_engine.WirePlan(pw, cfg, CPU).dispatch(sw)
+    else:  # the planes path, from host arrays or from tensors already on the device
+        pad = 48
+        planes, words = gpu_engine.marshal_points(pts, pad), gpu_engine.marshal_scalars(scalars, pad)
+        kw = dict(signed_digits=signed, **STATIC)
+        if path == "planes":
+            te._device_msm(planes, words, **kw)
+            gpu_engine._device_msm(planes, words, device=CPU, **kw)
+        else:
+            import jax.numpy as jnp
+            te._device_msm(jnp.asarray(planes), jnp.asarray(words), **kw)
+            gpu_engine._device_msm(torch.from_numpy(planes.view(np.int32)),
+                                   torch.from_numpy(words.view(np.int32)), **kw)
+    return calls
+
+
+@pytest.mark.parametrize("signed", [True, False])
+@pytest.mark.parametrize("path", ["wire", "plan", "planes", "resident"])
+def test_stage_names_and_shapes_equal_the_jax_engine(path, signed, monkeypatch):
+    calls = dispatch_both(path, signed, monkeypatch)
+    jax_calls, port_calls = calls["jax"], calls["port"]
+    assert [c[:3] for c in port_calls] == [c[:3] for c in jax_calls]
+    # u32 words: uint32 in JAX, the same bits as int32 in the port
+    for (*_, jdt), (*_, pdt) in zip(jax_calls, port_calls):
+        assert jdt == ["uint32"] * len(jdt) and pdt == ["int32"] * len(pdt)
+    s = int(signed)
+    batch = {"wire": "wire_batch", "plan": "fixed_batch"}.get(path, "batch_planes")
+    want = (["plan_niels_m16"] * 3 if path == "plan" else []) + [f"{batch}_w8_c4x4_s{s}"] * 3
+    assert [c[0] for c in port_calls] == want + [f"finish_w8_s{s}"]
+
+
+def test_stage_call_on_the_cpu_runs_the_stage_as_it_is():
+    args = (torch.arange(6, dtype=torch.int32), torch.ones(2, 3, dtype=torch.int64))
+    out = (torch.zeros(3), torch.ones(1))
+    seen = []
+    before = cache.stats()
+    got = cache.stage_call("cpu_stage", lambda *a: seen.append(a) or out, *args)
+    assert got is out and seen == [args]
+    got = gpu_engine._call_stage("cpu_stage_w3", lambda x, *, k: x * k, {"k": 3}, args[0], clone=False)
+    assert torch.equal(got, args[0] * 3)
+    assert cache.stats() == before  # no graph, no replay
+    with pytest.raises(TypeError):
+        cache.stage_call("not_a_tensor", lambda x: x, 3)
+
+
+# ---------------------------------------------------------------------------
+# (c) the cache's bookkeeping, the CPU standing in for the card
+# ---------------------------------------------------------------------------
+
+
+class StubGraph:
+    """Stands in for torch.cuda.CUDAGraph: records its capture and replays."""
+
+    def __init__(self):
+        self.mode, self.ended, self.replays = None, False, 0
+
+    def replay(self):
+        self.replays += 1
+
+    def pool(self):
+        return 0, id(self)
+
+
+@contextlib.contextmanager
+def stub_graph_capture(graph, stream=None, capture_error_mode="global"):
+    """Stands in for torch.cuda.graph: the block runs as it is."""
+    graph.mode = capture_error_mode
+    try:
+        yield
+    finally:
+        graph.ended = True
+
+
+PER_GRAPH = 500 + 2 * 4 * 4  # a stub pool and two int32 input buffers of 4
+
+
+@pytest.fixture
+def stub_card(monkeypatch):
+    """Every stage 'on the card' (the CPU), graphs stubbed; each graph's
+    pool is 500 bytes. Yields the card's memory: a limit of four graphs
+    and its free bytes, which a test may change."""
+    card = {"limit": 4 * PER_GRAPH, "free": 1 << 30}
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", StubGraph)
+    monkeypatch.setattr(torch.cuda, "graph", stub_graph_capture)
+    monkeypatch.setattr(torch.cuda, "Stream", lambda device: None)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
+    monkeypatch.setattr(cache, "_stage_device", lambda args: CPU)
+    monkeypatch.setattr(cache, "_pool_bytes", lambda graph: 500)
+    monkeypatch.setattr(cache, "limit", lambda device: card["limit"])
+    monkeypatch.setattr(cache, "_card_memory", lambda device: (card["free"], 8 * card["limit"]))
+    saved = dict(pk.launches)
+    yield card
+    pk.launches.update(saved)
+
+
+def counting_stage(calls):
+    """A stage that launches one 'kernel' (the count `_launch` keeps) and
+    returns 2 * x + y."""
+    def stage(x, y):
+        calls.append(1)
+        pk.launches["lane_scan"] += 1
+        return 2 * x + y
+    return stage
+
+
+def test_cache_key_covers_name_shapes_dtypes_and_device(stub_card):
+    stub_card["limit"] = 8 * PER_GRAPH  # room for all four graphs
+    c = cache.StageCache()
+    calls = []
+    fn = counting_stage(calls)
+    x = torch.arange(4, dtype=torch.int32)
+    c.call("a", fn, x, x)
+    c.call("a", fn, x, x)                                  # replay
+    c.call("b", fn, x, x)                                  # another name
+    c.call("a", fn, x[:3], x[:3])                          # another shape
+    c.call("a", fn, x.to(torch.int64), x.to(torch.int64))  # another dtype
+    assert (c.captures, c.replays) == (4, 1) and c.stats()["graphs"] == 4
+    args = (x, x)
+    keys = {cache._key("a", torch.device("cuda", i), args) for i in (0, 1)}
+    assert len(keys) == 2 and cache._key("a", CPU, args) == cache._key("a", CPU, (x.clone(), x))
+
+
+def test_second_call_replays_and_copies_its_arguments_in(stub_card):
+    c = cache.StageCache()
+    calls = []
+    fn = counting_stage(calls)
+    x, y = torch.arange(4, dtype=torch.int32), torch.ones(4, dtype=torch.int32)
+    first = c.call("s", fn, x, y)
+    assert torch.equal(first, 2 * x + y) and len(calls) == 2  # the eager run, then the capture
+    (entry,) = c._graphs.values()
+    assert entry.graph.mode == "thread_local" and entry.graph.ended
+    x2 = x + 10
+    shared = c.call("s", fn, x2, y, clone=False)
+    owned = c.call("s", fn, x2, y)
+    assert len(calls) == 2 and entry.graph.replays == 2  # no new capture
+    assert torch.equal(entry.inputs[0], x2) and torch.equal(entry.inputs[1], y)
+    assert shared is entry.output and owned is not entry.output
+    assert torch.equal(owned, entry.output)
+    assert c.stats()["bytes"] == PER_GRAPH  # the pool and the two input buffers
+
+
+def test_launch_counts_are_added_once_a_replay(stub_card):
+    c = cache.StageCache()
+    fn = counting_stage([])
+    x = torch.arange(4, dtype=torch.int32)
+    pk.reset_launch_counts()
+    c.call("s", fn, x, x)
+    assert pk.launches["lane_scan"] == 1  # the eager run; the capture's launch taken back out
+    (entry,) = c._graphs.values()
+    assert entry.launches == {"lane_scan": 1}
+    for _ in range(3):
+        c.call("s", fn, x, x)
+    assert pk.launches["lane_scan"] == 4 and c.replays == 3
+    assert sum(pk.launches.values()) == 4
+
+
+def test_graphs_stay_within_the_limit_least_recently_used_first(stub_card):
+    x = torch.arange(4, dtype=torch.int32)
+    fn = counting_stage([])
+    c = cache.StageCache()
+    for name in ("a", "b", "c", "d", "a", "e"):  # "a" used again, so "b" is the least recent
+        c.call(name, fn, x, x)
+    assert [k[0] for k in c._graphs] == ["c", "d", "a", "e"] and c.evictions == 1
+    assert c.stats()["bytes"] == c.held(CPU) == 4 * PER_GRAPH == stub_card["limit"]
+    assert c.peak_bytes == 5 * PER_GRAPH  # the new graph, before the limit dropped the oldest
+    c.clear()
+    assert c.stats()["graphs"] == c.stats()["captures"] == c.stats()["bytes"] == 0
+
+
+def test_a_call_keeps_its_two_graphs_at_the_limit(stub_card):
+    """Two graphs of at most half the limit each always fit: the finish's
+    capture drops older graphs, never the call's batch graph."""
+    stub_card["limit"] = 2 * PER_GRAPH
+    x = torch.arange(4, dtype=torch.int32)
+    c = cache.StageCache()
+    c.call("other", counting_stage([]), x, x)
+    for _ in range(3):
+        for name in ("batch", "batch", "finish"):
+            c.call(name, counting_stage([]), x, x)
+    assert [k[0] for k in c._graphs] == ["batch", "finish"]
+    assert (c.captures, c.replays, c.evictions) == (3, 7, 1) and c.held() == stub_card["limit"]
+
+
+def test_a_graph_past_half_the_limit_is_dropped_and_its_stage_runs_eagerly(stub_card):
+    stub_card["limit"] = 2 * PER_GRAPH - 1
+    x = torch.arange(4, dtype=torch.int32)
+    calls = []
+    c = cache.StageCache()
+    pk.reset_launch_counts()
+    for _ in range(3):
+        assert torch.equal(c.call("wire_batch_w20_c2048x512_s0", counting_stage(calls), x, x), 3 * x)
+    assert len(calls) == 4  # the first call's eager run and capture, then two eager runs
+    assert pk.launches["lane_scan"] == 3  # the capture's launch taken back out
+    s = c.stats()
+    assert (s["graphs"], s["bytes"], s["captures"], s["replays"]) == (0, 0, 1, 0)
+    assert s["too_large"] == ["wire_batch_w20_c2048x512_s0"]
+    c.call("small", counting_stage(calls), x[:1], x[:1])  # another key is still captured
+    assert c.stats()["graphs"] == 1
+
+
+def test_nothing_is_captured_while_the_card_is_short_of_memory(stub_card):
+    x = torch.arange(4, dtype=torch.int32)
+    calls = []
+    c = cache.StageCache()
+    stub_card["free"] = stub_card["limit"] - 1
+    for _ in range(2):
+        assert torch.equal(c.call("s", counting_stage(calls), x, x), 3 * x)
+    assert len(calls) == 2 and (c.captures, c.uncaptured) == (0, 2) and not c._graphs
+    stub_card["free"] = stub_card["limit"]
+    c.call("s", counting_stage(calls), x, x)
+    c.call("s", counting_stage(calls), x, x)
+    assert len(calls) == 4 and (c.captures, c.replays, c.uncaptured) == (1, 1, 2)
+
+
+def test_eager_bypasses_the_graphs(stub_card):
+    c = cache.StageCache()
+    calls = []
+    fn = counting_stage(calls)
+    x = torch.arange(4, dtype=torch.int32)
+    with c.eager():
+        for _ in range(3):
+            assert torch.equal(c.call("s", fn, x, x), 3 * x)
+    assert len(calls) == 3 and (c.captures, c.replays) == (0, 0)
+    c.call("s", fn, x, x)
+    assert c.captures == 1
+
+
+def test_a_failed_capture_raises_with_the_stage_name(stub_card):
+    """No fall back to the eager run: the error reaches the caller, the
+    capture is ended, and no graph is kept."""
+    c = cache.StageCache()
+    calls = []
+
+    def fn(x):
+        calls.append(1)
+        if len(calls) == 2:  # the capture
+            raise RuntimeError("operation not permitted when stream is capturing")
+        return x
+
+    with pytest.raises(RuntimeError, match="not permitted") as info:
+        c.call("wire_batch_w13_c2048x128_s1", fn, torch.zeros(2))
+    assert any("wire_batch_w13_c2048x128_s1" in note for note in info.value.__notes__)
+    assert c.stats()["graphs"] == c.captures == 0

@@ -11,7 +11,11 @@ collects `[inputSize, msmFunc, timeMS, correct]` rows with a CSV export.
 
 Engines are the port's (`gpu` is the JAX package's `tpu`). Without
 `--device` the GPU engines run on the card (and fail without one);
-`--device cpu` runs every kernel's plain PyTorch version. The window sweep
+`--device cpu` runs every kernel's plain PyTorch version. On the card the
+first call at a new shape captures each stage as a CUDA graph
+(`utils/cache.py`) and a warm call replays them: with `--iters 1` a row's
+time is that first call's, so time warm calls with `--iters` > 1 (the
+median). The window sweep
 covers the signed digits of the default configuration, or the digit forms
 named with `--signed` and `--unsigned`. `--scaling` prints the multi-GPU
 layer's collective model and its virtual-mesh trend

@@ -22,9 +22,16 @@ device tensor ("dispatch") do not synchronize, and the batch entry points
 fetch results only after every job has been queued. Every stage runs on
 `device`: the hand-written CUDA kernels on a GPU, their plain PyTorch
 versions on the CPU.
+
+Every stage goes through `_call_stage`, under the JAX engine's stage
+names: on a GPU it is one replay of a CUDA graph, captured at the stage's
+first call with its shapes (`utils/cache.py`), so a warm call queues a
+few copies and replays rather than each stage's launches one by one. The
+affine finish (`device_affine`) runs eagerly.
 """
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
 import numpy as np
@@ -37,7 +44,7 @@ from ..oracle.curve import ExtPoint
 from ..oracle.msm import combine_windows
 from ..ops import field_ops, limbs, pippenger
 from ..ops.kernels import padd_kernels as pk
-from ..utils import convert, trace
+from ..utils import cache, convert, trace
 
 
 def resolve_device(device=None) -> torch.device:
@@ -124,8 +131,27 @@ def _finish_affine_impl(carry_st: torch.Tensor) -> torch.Tensor:
     ])
 
 
-def _call_finish(carry: torch.Tensor, device_affine: bool) -> torch.Tensor:
-    return _finish_affine_impl(carry) if device_affine else _finish_impl(carry)
+def _call_finish(carry: torch.Tensor, window_size: int, signed: bool,
+                 device_affine: bool) -> torch.Tensor:
+    """The finish stage, `finish_w{w}_s{s}`. The affine finish stays eager:
+    its plain `finv_mont` is about 10^5 launches, too many to capture; it
+    joins the stage graphs with a `finv_mont` kernel."""
+    if device_affine:
+        return _finish_affine_impl(carry)
+    return _call_stage(f"finish_w{window_size}_s{int(signed)}", _finish_impl, {}, carry)
+
+
+def _call_stage(name: str, fn, static_kw: dict, *args, clone: bool = True):
+    """Run one pipeline stage through the stage graphs (`utils/cache.py`):
+    the JAX engine's `_call_stage`, its signature and its stage names.
+    `name` must encode every static in `static_kw` (it keys the graphs).
+    `clone=False` for a batch stage: its carry goes straight into the next
+    stage call, which copies it before the graph is replayed again."""
+    return cache.stage_call(name, functools.partial(fn, **static_kw), *args, clone=clone)
+
+
+def _batch_name(kind: str, window_size: int, n_chunks: int, chunk_len: int, signed: bool) -> str:
+    return f"{kind}_w{window_size}_c{n_chunks}x{chunk_len}_s{int(signed)}"
 
 
 # ---------------------------------------------------------------------------
@@ -260,20 +286,20 @@ def _device_msm(points_plain, scalar_words, *, window_size, n_chunks, chunk_len,
     assert n % M == 0, (n, M)
     host_input = isinstance(points_plain, np.ndarray)
     device = torch.device(device) if host_input else points_plain.device
+    static = dict(window_size=window_size, n_chunks=n_chunks, chunk_len=chunk_len,
+                  signed_digits=signed_digits)
+    bname = _batch_name("batch_planes", window_size, n_chunks, chunk_len, signed_digits)
     carry = _identity_carry(window_size, signed_digits, device)
     for b in range(n // M):
         sl = slice(b * M, (b + 1) * M)
-        if host_input:
-            pts_b = _host_tensor(points_plain[:, :, sl], device).to(device, non_blocking=True)
-            sc_b = _host_tensor(scalar_words[:, sl], device).to(device, non_blocking=True)
+        if host_input:  # pinned: the stage copies them to the card
+            pts_b = _host_tensor(points_plain[:, :, sl], device)
+            sc_b = _host_tensor(scalar_words[:, sl], device)
         else:
             pts_b = points_plain[:, :, sl].contiguous()
             sc_b = scalar_words[:, sl].contiguous()
-        carry = _batch_planes_impl(
-            pts_b, sc_b, carry, window_size=window_size, n_chunks=n_chunks,
-            chunk_len=chunk_len, signed_digits=signed_digits,
-        )
-    return _call_finish(carry, device_affine)
+        carry = _call_stage(bname, _batch_planes_impl, static, pts_b, sc_b, carry, clone=False)
+    return _call_finish(carry, window_size, signed_digits, device_affine)
 
 
 def _dispatch_planes(points: Sequence[ExtPoint], scalars: Sequence[int], config: MSMConfig,
@@ -371,21 +397,21 @@ def _device_msm_wire_staged(xy_t: torch.Tensor, sc_t: torch.Tensor, *, window_si
     host tensors (`_stage_xy`, `_stage_scalars`).
 
     Each batch's rows are copied with non_blocking=True from pinned host
-    memory, so the host queues the copies and kernels of every batch
-    without waiting; the carry stays on the device.
+    memory (by the stage, into its graph's input buffers), so the host
+    queues the copies and replays of every batch without waiting; the
+    carry stays on the device.
     """
     M = n_chunks * chunk_len
     n = xy_t.shape[0]
     assert n % M == 0, (n, M)
+    static = dict(window_size=window_size, n_chunks=n_chunks, chunk_len=chunk_len,
+                  signed_digits=signed_digits)
+    bname = _batch_name("wire_batch", window_size, n_chunks, chunk_len, signed_digits)
     carry = _identity_carry(window_size, signed_digits, device)
     for b in range(n // M):
-        dxy = xy_t[b * M : (b + 1) * M].to(device, non_blocking=True)
-        dsc = sc_t[b * M : (b + 1) * M].to(device, non_blocking=True)
-        carry = _wire_batch_impl(
-            dxy, dsc, carry, window_size=window_size, n_chunks=n_chunks,
-            chunk_len=chunk_len, signed_digits=signed_digits,
-        )
-    return _call_finish(carry, device_affine)
+        carry = _call_stage(bname, _wire_batch_impl, static, xy_t[b * M : (b + 1) * M],
+                            sc_t[b * M : (b + 1) * M], carry, clone=False)
+    return _call_finish(carry, window_size, signed_digits, device_affine)
 
 
 def _dispatch_wire(points_be: np.ndarray, scalars_be: np.ndarray, config: MSMConfig,
@@ -454,8 +480,11 @@ class WirePlan:
         self.w, self.C, self.L, self.pad_to = _padded_plan(config, self.n)
         M = self.C * self.L
         xy_t = _stage_xy(rows, self.pad_to, self.device)
+        # The batch on the device: a stage's device is that of its CUDA
+        # tensors. Its rows [M, 24] stand for the JAX stage's Niels planes.
         self._rows = [
-            pk.to_niels_xy_rows(xy_t[b * M : (b + 1) * M].to(self.device, non_blocking=True))
+            _call_stage(f"plan_niels_m{M}", pk.to_niels_xy_rows, {},
+                        xy_t[b * M : (b + 1) * M].to(self.device, non_blocking=True))
             for b in range(self.pad_to // M)
         ]
 
@@ -481,14 +510,13 @@ class WirePlan:
         M = self.C * self.L
         signed = _signed_wire(self.config, scalars_be)
         sc_t = _stage_scalars(scalars_be, self.pad_to, self.device)
+        static = dict(window_size=self.w, n_chunks=self.C, chunk_len=self.L, signed_digits=signed)
+        bname = _batch_name("fixed_batch", self.w, self.C, self.L, signed)
         carry = _identity_carry(self.w, signed, self.device)
         for b, rows in enumerate(self._rows):
-            dsc = sc_t[b * M : (b + 1) * M].to(self.device, non_blocking=True)
-            carry = _fixed_batch_impl(
-                rows, dsc, carry, window_size=self.w, n_chunks=self.C, chunk_len=self.L,
-                signed_digits=signed,
-            )
-        return _call_finish(carry, self.config.device_affine), self.w
+            carry = _call_stage(bname, _fixed_batch_impl, static, rows, sc_t[b * M : (b + 1) * M],
+                                carry, clone=False)
+        return _call_finish(carry, self.w, signed, self.config.device_affine), self.w
 
     def msm_affine(self, scalars_be: np.ndarray) -> tuple[int, int]:
         return _fetch_affine(*self.dispatch(scalars_be))

@@ -7,9 +7,17 @@ sm_90a kernel of `csrc/*.cu` on the tensors' card and its current stream,
 or raises. No wrapper falls back from the kernel to the plain version.
 
 `launches[name]` counts the kernel launches of each wrapper (never the
-plain calls), so a run can show that it went through the kernels.
+plain calls), so a run can show that it went through the kernels. A
+launch recorded into a CUDA graph runs only when the graph is replayed:
+the stage-graph cache (`utils/cache.py`) takes a capture's launches back
+out (`recorded_launches`) and adds them again at each replay
+(`add_launches`), so the counts are those of an eager run;
+`profiled_launches` reads a profile's kernel records, which can miss some
+of a graph replay's (torch 2.11 and CUDA 12.8 on an H100, PERF.md).
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -33,6 +41,43 @@ FINISH_THREADS = 128  # most threads a lane of reduce_finish (two lanes a block)
 def reset_launch_counts() -> None:
     for name in KERNELS:
         launches[name] = 0
+
+
+@contextlib.contextmanager
+def recorded_launches():
+    """Yields a dict that, when the block ends, holds the launches made in
+    it ({name: count}); those launches are taken back out of `launches`."""
+    before = dict(launches)
+    recorded: dict[str, int] = {}
+    try:
+        yield recorded
+    finally:
+        for name in KERNELS:
+            if launches[name] != before[name]:
+                recorded[name] = launches[name] - before[name]
+                launches[name] = before[name]
+
+
+def add_launches(counts: dict[str, int]) -> None:
+    """Count the launches of one replay of a graph that recorded `counts`."""
+    for name, n in counts.items():
+        launches[name] += n
+
+
+def profiled_launches(events) -> dict[str, int]:
+    """{name: device runs of its kernel} among a `torch.profiler` profile's
+    events (`prof.events()`), the kernels that graph replays run included:
+    each wrapper's kernel is the symbol `<name>_kernel` (extern "C", so
+    the profiler's name)."""
+    from torch.autograd import DeviceType
+
+    counts = dict.fromkeys(KERNELS, 0)
+    for e in events:
+        symbol = e.name.split("(")[0]
+        if (e.device_type == DeviceType.CUDA and symbol.endswith("_kernel")
+                and symbol[: -len("_kernel")] in counts):
+            counts[symbol[: -len("_kernel")]] += 1
+    return counts
 
 
 def _on_card(name: str, *tensors: torch.Tensor) -> bool:
