@@ -10,19 +10,20 @@
    g++ and OpenMP at the same time (without them the run fails).
 3. Times independent `mad.lo.u32` chains (a probe kernel in this file): the
    card's 32-bit integer multiply rate, which the operations bound of every
-   kernel uses. Runs each of the thirteen kernels and its plain PyTorch version
+   kernel uses. Runs each of the fourteen kernels and its plain PyTorch version
    on the card on seeded inputs at the shapes of the 2^20-point paths,
    requires every output digit to be equal, and times both with CUDA
    events (the grouped sum at the shapes of both reduction passes,
-   `padd_masked` also at every level of the naive engine's tree sum).
+   `padd_masked` also at every level of the naive engine's tree sum,
+   `finish_affine` on K 20 windows with one z = 0).
    Holds the six kernels of the device-resident path the same way at its
    2^20 shapes (w 16 in one batch of C 2048 x L 512: `to_niels` over 2^20
    points, the gathering scan at L 512 x W 32 768, `lane_scan` at K 16,
    `assemble_buckets` over K 16 x B 32 800 buckets without a carry,
    `grouped_running_sum` at [32, 4, 16, 16 400], `reduce_finish` at 1 025
-   groups a window), and the tensor-core gathering scan
-   (`accumulate_scan_gather(use_mma=True)`) at the gathering scan's shape:
-   rows labelled "[resident 2^20]". Prints each kernel's ptxas line with
+   groups a window, `finish_affine` at K 16), and the tensor-core gathering
+   scan (`accumulate_scan_gather(use_mma=True)`) at the gathering scan's
+   shape: rows labelled "[resident 2^20]". Prints each kernel's ptxas line with
    its occupancy (warps an SM) where the library reports one.
 4. Drives every path with the launch counts set to 0 just before and read
    just after; each path names the kernels it must and must not launch:
@@ -87,14 +88,19 @@
      signed: one NCCL rank (`distributed.init` with world size 1 on a local
      coordinator, `global_mesh`, `msm_window_sums_sharded` with one shard of
      C 2048 x L 512) and `_multihost_worker 0 1 --device cuda` in a
-     subprocess (it must print MULTIHOST_OK); virtual meshes of D 2 and 4
+     subprocess (it must print MULTIHOST_OK, having captured its stage
+     graphs and held a replayed and an eager call digit for digit to its
+     first; its captures precede its collective); virtual meshes of D 2 and 4
      shards on cuda:0 (C 2048 x L 512 / D a shard) in both collective
      modes, each with the gathering scan, `lane_scan` and
      `assemble_buckets` once a shard, the reduction once a shard
      ("window_sums") or once ("buckets"), `padd_masked` (D - 1).bit_length()
      times (the tree combine) and no other kernel, no synchronizing call
      before the result is read, cold and warm wall, busy time, launches and
-     peak memory; `ShardedFixedBasePlan` at D 4 with two jobs of the
+     peak memory, every call through the stage graphs and digit for digit
+     the `eager()` call's (`graph_ab` for NCCL world 1, without the sync
+     check, and for D 4 in both modes); `ShardedFixedBasePlan` at D 4 with
+     two jobs of the
      benchmark's repeated-base case (sum(s) * B; no `to_niels`, no
      `pack_rows`); `padd_masked` held against its plain version at the
      buckets-mode tree's shape [4, 16, 2 099 200] (row "[sharded 2^20]");
@@ -105,17 +111,23 @@
      printed as one JSON line with each wire plan), and the resident rule
      at w 13-17 on the same inputs;
    - a trace summary (`utils/trace.py`) of one warm 2^20 wire call;
-   - the stage graphs (`utils/cache.py`) on the wire, planes, plan and
-     resident paths at 2^20 (`graph_ab`): the cold call at a new key, then
-     the graphs and `eager()` in turns on the same inputs, every output
+   - the stage graphs (`utils/cache.py`) on the wire, planes, plan,
+     resident, sharded and `device_affine` paths at 2^20 (`graph_ab`):
+     the cold call at a new key, then the graphs and `eager()` in turns
+     on the same inputs, every output
      digit for digit equal and the expected result; a warm graph call
      under PyTorch's sync check; per mode the warm wall, host queueing,
      busy time, idle share, device launches, host launch calls and peak
      memory; three wire jobs queued before any fetch, each its own
      result; the graphs' bytes within their limit after every sweep call;
-   - last, as each profiles about 10^5 plain kernels (after which this
-     machine's profiler drops some records): `device_affine`, the
-     2^20 wire call with the affine finish on the card; `engine="naive"`
+   - `device_affine`, the 2^20 wire call with the affine finish on the
+     card: the wire kernels and `finish_affine` once a call, the plain
+     `finv_mont` made to raise, `PINNED[20]`, cold and warm wall, and its
+     `graph_ab` (the finish one graph, `finish_affine_w13_s1`; fewer than
+     2 000 device launches a call in either mode); the resident call with
+     `device_affine` (phase 4o) launches `finish_affine` once at K 16;
+   - last, as it profiles about 10^5 plain kernels (after which this
+     machine's profiler drops some records): `engine="naive"`
      at 2^16: `padd_masked` once a level of its tree sum,
      (pad_to - 1).bit_length() launches, and no other kernel; its device
      launches from profiles of one and two ladder steps.
@@ -159,6 +171,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 # 32-bit multiplies in one 8-limb CIOS Montgomery product (a*b: 64,
 # m*p: 64, m: 8), two operations (low and high word) each.
 OPS_PER_MONT_MUL = 2 * (64 + 64 + 8)
+# from_mont is one Montgomery reduction: its m*p and m halves, no a*b.
+OPS_PER_MONT_REDUCE = 2 * (64 + 8)
 PALLAS = "webgpu_msm_tpu/ops/pallas/"
 CSRC = "webgpu_msm_tpu_torch/ops/kernels/csrc/"
 WIRE_KERNELS = ("to_niels_xy_rows", "accumulate_scan_gather", "lane_scan", "assemble_buckets",
@@ -172,6 +186,14 @@ SHARDED = " [sharded 2^20]"  # the label of the tree combine's row at the sharde
 SUFFIX = " [suffix scan 2^20]"  # padd_masked at the suffix scan's shape (Gs 1, resident buckets)
 GS4 = " [reduce Gs 4 2^20]"  # the grouped kernels at Gs 4 over the resident buckets
 REDUCE_GROUP_SIZES = (1, 2, 4, 8, 16, 32)
+# The affine finish's least work a window: z^(p-2) left to right from z
+# (p - 2 has 253 bits, 133 of them set: 252 squarings and 132 products),
+# x * z^-1 and y * z^-1; then two from_mont (OPS_PER_MONT_REDUCE each).
+FINISH_AFFINE_PRODUCTS = 252 + 132 + 2
+# The dependent products the kernel runs a window: its chain starts from
+# Montgomery 1 (253 squarings, 133 products), and it takes each from_mont
+# as a product by 1.
+FINISH_AFFINE_CHAIN = 253 + 133 + 2 + 2
 MAD_PROBE = """
 #include <cuda_runtime.h>
 // Eight independent mad.lo.u32 chains a thread: nothing but multiply issue.
@@ -305,8 +327,17 @@ def kernel_inputs(gen: torch.Generator, dev, M=1 << 18, K=20, C=2048, L=128, B=4
                                      e_pos.to(torch.int32).to(dev), L,
                                      pts((4,), K * B) if carry else None),
         "to_niels_xy_rows": lambda: (xy_rows.to(dev),),
+        "finish_affine": lambda: (mont_sums(gen, K).to(dev),),
     }
     return {k: f() for k, f in builders.items() if want(k)}
+
+
+def mont_sums(gen: torch.Generator, K: int) -> torch.Tensor:
+    """Montgomery window sums [4, 16, K] below p, as `reduce_finish` writes
+    them, with z = 0 in window 1 (mapped to (0, 0))."""
+    sums = field_planes(gen, (4,), K)
+    sums[3, :, 1] = 0
+    return sums
 
 
 def tree_sum_levels(gen: torch.Generator, dev, W: int, padd_masked) -> list:
@@ -371,7 +402,8 @@ def bound(name: str, args, ops_per_s: float) -> tuple[float, str]:
     """Least time for the work these inputs need: (ms, "bytes"|"operations").
     Bytes: every input read once and every output written once, over the
     card's memory rate. Operations: the Montgomery products of the function,
-    OPS_PER_MONT_MUL 32-bit multiplies each, over the measured multiply rate."""
+    OPS_PER_MONT_MUL 32-bit multiplies each (a from_mont reduction counts
+    as OPS_PER_MONT_REDUCE of them), over the measured multiply rate."""
     nbytes = sum(a.numel() * 4 for a in args if isinstance(a, torch.Tensor))
     if name == "to_niels_xy":
         M = args[0].shape[-1]
@@ -418,13 +450,19 @@ def bound(name: str, args, ops_per_s: float) -> tuple[float, str]:
     elif name == "padd":
         nbytes += args[0].numel() * 4
         muls = 9 * args[0].shape[-1]
+    elif name == "finish_affine":
+        # FINISH_AFFINE_PRODUCTS products and two reductions a window;
+        # output: [2, 16, K]
+        K = args[0].shape[-1]
+        nbytes += 2 * 16 * K * 4
+        muls = K * (FINISH_AFFINE_PRODUCTS + 2 * OPS_PER_MONT_REDUCE / OPS_PER_MONT_MUL)
     elif name == "reduce_finish":
         T, _, K, doublings = args
         G = T.shape[-1] // K
         nbytes += 2 * 64 * K * 4
         # sum_g g*T_g (2G - 1 adds), sum_g U_g (G - 1), the doublings (8
-        # products each), one add and four from_mont, per window.
-        muls = K * (9 * (3 * G - 2) + 8 * doublings + 9 + 4)
+        # products each), one add and four from_mont (reductions), per window.
+        muls = K * (9 * (3 * G - 2) + 8 * doublings + 9 + 4 * OPS_PER_MONT_REDUCE / OPS_PER_MONT_MUL)
     else:  # grouped_running_sum: the serial chain's adds are the least work
         Gs, _, _, W = args[0].shape
         nbytes += 2 * 64 * W * 4
@@ -559,15 +597,17 @@ def profile_counts(fn) -> tuple[float, int, int]:
     return busy, sum(e.count for e in on_device), host
 
 
-def graph_ab(label: str, graphs, run, check_out, smi: str) -> dict:
+def graph_ab(label: str, graphs, run, check_out, smi: str, sync_check: bool = True) -> dict:
     """One path with the stage graphs and under `graphs.eager()`, on the
     same inputs. run(): the path's dispatch, returning its window sums on
     the card without a sync; check_out(out) fails unless they give the
     expected result. First the cold call at a new key (every graph dropped;
     the kernels and constants already loaded), then graph, eager, eager,
     graph in turns, every output digit for digit equal; a warm graph call
-    under PyTorch's sync check; then, per mode, the peak device memory and
-    a profile. Prints the numbers and returns them."""
+    under PyTorch's sync check (unless `sync_check` is False: a path whose
+    collective synchronizes); then, per mode, the peak device memory and a
+    profile. Prints the numbers, and the keys left eager past half the
+    graphs' limit, and returns them."""
     graphs.clear()
     out, cold_ms = once_ms(run)
     check_out(out)
@@ -589,10 +629,11 @@ def graph_ab(label: str, graphs, run, check_out, smi: str) -> dict:
         check(torch.equal(out, outs[0]), f"{label}: the graph and the eager outputs differ")
         check_out(out)
     check(graphs.stats()["captures"] == captured["captures"], f"{label}: a warm call captured")
-    out, _ = queued_without_sync(f"{label} (graphs, warm)", run)
-    check(torch.equal(out, outs[0]), f"{label}: the sync-checked call differs")
+    if sync_check:
+        out, _ = queued_without_sync(f"{label} (graphs, warm)", run)
+        check(torch.equal(out, outs[0]), f"{label}: the sync-checked call differs")
     report = {"cold_new_key_ms": cold_ms, "captures": captured["captures"], "replays_a_call": replays,
-              "graph_bytes": graphs.stats()["bytes"]}
+              "graph_bytes": graphs.stats()["bytes"], "too_large": graphs.stats()["too_large"]}
     for use_graphs in (True, False):
         with contextlib.nullcontext() if use_graphs else graphs.eager():
             torch.cuda.reset_peak_memory_stats()
@@ -606,9 +647,11 @@ def graph_ab(label: str, graphs, run, check_out, smi: str) -> dict:
             "busy_ms": busy, "idle_share": 1 - busy / warm, "device_launches": dev_launches,
             "host_launch_calls": host_calls, "peak_gb": peak, "peak_reserved_gb": peak_reserved}
     g, e = report["graphs"], report["eager"]
-    print(f"{label} graphs/eager: digit-exact over graph, eager, eager, graph; no synchronizing call on a warm "
-          f"graph call; cold at a new key {cold_ms:.1f} ms ({captured['captures']} captures), "
-          f"{replays} replays a warm call, graphs hold {report['graph_bytes'] / 1e9:.3f} GB [{smi}]")
+    print(f"{label} graphs/eager: digit-exact over graph, eager, eager, graph; "
+          + ("no synchronizing call on a warm graph call; " if sync_check else "")
+          + f"cold at a new key {cold_ms:.1f} ms ({captured['captures']} captures), "
+          f"{replays} replays a warm call, graphs hold {report['graph_bytes'] / 1e9:.3f} GB, left eager past "
+          f"half the limit: {report['too_large']} [{smi}]")
     for mode, r in (("graphs", g), ("eager", e)):
         print(f"{label} {mode}: warm {r['warm_ms']:.2f} ms (runs {', '.join(f'{x:.2f}' for x in r['walls_ms'])}), "
               f"host queueing {r['queued_ms']:.2f} ms, device busy {r['busy_ms']:.2f} ms, idle share "
@@ -735,7 +778,7 @@ def main() -> int:
     from webgpu_msm_tpu_torch import MSMConfig, MSMPlan, api, benchmark, compute_msm, compute_msm_batch
     from webgpu_msm_tpu_torch.config import SUPPORTED_WINDOW_SIZES
     from webgpu_msm_tpu_torch.engines import baseline_engine, cpu_engine, gpu_engine, naive_engine
-    from webgpu_msm_tpu_torch.ops import limbs, pippenger
+    from webgpu_msm_tpu_torch.ops import field_ops, limbs, pippenger
     from webgpu_msm_tpu_torch.ops.kernels import build
     from webgpu_msm_tpu_torch.runtime import build as native_build
     from webgpu_msm_tpu_torch.ops.kernels import padd_kernels as pk
@@ -812,6 +855,10 @@ def main() -> int:
         # the gathering scan with the tensor-core product, on no path
         "accumulate_scan_gather_mma": (gather_mma, gather_mma_plain, PALLAS + "field_kernels_mxu.py:125",
                                        mma_cu, 3),
+        # not a Pallas kernel: the XLA tail of the JAX _finish_affine_impl (finv_mont,
+        # two products, from_mont), on the device_affine finish
+        "finish_affine": (pk.finish_affine, pk.finish_affine_plain,
+                          "webgpu_msm_tpu/engines/tpu_engine.py:81", padd_cu, 20),
     }
     check(tuple(kernels) == pk.KERNELS, "the kernel table does not list the package's kernels")
     # Load each plain version's torch kernels once at a small shape, so its
@@ -849,6 +896,11 @@ def main() -> int:
                   f"{tuple(levels[0][0].shape)}; {chain_ms:.4f} ms a level (bound {chain_bound:.4f} ms "
                   f"a level) [{smi}]")
             del levels
+        if kname == "finish_affine":
+            rows[kname]["chain_products"] = FINISH_AFFINE_CHAIN
+            print(f"kernel {kname}: one thread a window, a chain of {FINISH_AFFINE_CHAIN} dependent Montgomery "
+                  f"products a window; its bound counts the function's {FINISH_AFFINE_PRODUCTS} products and "
+                  f"2 reductions, their multiplies and not their latency [{smi}]")
         torch.cuda.empty_cache()
     scan_args = inputs["accumulate_scan"]
     del inputs
@@ -871,6 +923,11 @@ def main() -> int:
         resident_rows[kname] = hold(kname, kern, plain, args, reps, ops_per_s, replaces, source, smi,
                                     RESIDENT)
         torch.cuda.empty_cache()
+    # the affine finish at the resident call's K 16 windows
+    kern, plain, replaces, source, reps = kernels["finish_affine"]
+    resident_rows["finish_affine"] = hold("finish_affine", kern, plain, (mont_sums(gen, 16).to(dev),), reps,
+                                          ops_per_s, replaces, source, smi, RESIDENT)
+    resident_rows["finish_affine"]["chain_products"] = FINISH_AFFINE_CHAIN
     print(f"phase resident kernels: {time.perf_counter() - t0:.1f} s")
 
     # 4. the paths. Each is driven with the counts set to 0 just before and
@@ -1227,6 +1284,19 @@ def main() -> int:
           f"memory {peak_gb:.3f} GB [{smi}]")
     graph_ab("resident 2^20", stage_graphs, resident,
              lambda out: check(affine_of(out, w_res) == PINNED[20], "resident 2^20: differs from PINNED"), smi)
+    # the resident call with the affine finish: finish_affine once more, at K 16
+    affine_kernels = RESIDENT_KERNELS + ("finish_affine",)
+    resident_affine = lambda: gpu_engine._device_msm(pts_t, sc_t, window_size=w_res, n_chunks=C_res,
+                                                     chunk_len=L_res, signed_digits=signed, device_affine=True)
+    out_affine, ms, counts = drive("resident device_affine 2^20", pk, resident_affine, affine_kernels,
+                                   others(*affine_kernels))
+    check(all(counts[k] == 1 for k in affine_kernels), f"resident device_affine 2^20: launches {counts}")
+    check(tuple(out_affine.shape) == (2, 16, 16) and affine_of(out_affine, w_res) == PINNED[20],
+          "resident device_affine 2^20: result differs from PINNED")
+    resident_rows["finish_affine"]["launches"] = counts["finish_affine"]
+    print(f"resident device_affine 2^20: equals PINNED[20]; launches { {k: v for k, v in counts.items() if v} }; "
+          f"{ms:.1f} ms (first call) [{smi}]")
+    del out_affine
     resident_warm_ms = once_ms(resident)[1]  # the warm call, for the collective model (4p)
     # msm_window_sums on the Niels planes of the same points: one batch added
     # into no carry; its window sums equal the staged call's as points
@@ -1361,6 +1431,8 @@ def main() -> int:
         out, warm = once_ms(call)
         peak = torch.cuda.max_memory_allocated() / 1e9
         check(window_sums_affine(out, w_res) == PINNED[20], f"{label}: warm result differs from PINNED")
+        with stage_graphs.eager():
+            check(torch.equal(call(), out), f"{label}: the graph call and the eager call differ")
         queued = float("nan")
         if sync_check:
             out, queued = queued_without_sync(label, call)
@@ -1381,14 +1453,19 @@ def main() -> int:
                      device=dev)
     mesh = distributed.global_mesh()
     check(mesh.group is not None and mesh.size == 1, f"world mesh: {mesh}")
-    sharded_call("sharded NCCL world 1 2^20", lambda: msm_window_sums_sharded(
-        niels, sc_t, window_size=w_res, n_chunks=C_res, chunk_len=L_res, mesh=mesh, signed_digits=signed),
-        1, 1, sync_check=False)
+    nccl = lambda: msm_window_sums_sharded(niels, sc_t, window_size=w_res, n_chunks=C_res, chunk_len=L_res,
+                                           mesh=mesh, signed_digits=signed)
+    sharded_out = lambda label: lambda out: check(window_sums_affine(out, w_res) == PINNED[20],
+                                                  f"{label}: differs from PINNED")
+    sharded_call("sharded NCCL world 1 2^20", nccl, 1, 1, sync_check=False)
+    graph_ab("sharded NCCL world 1 2^20", stage_graphs, nccl, sharded_out("sharded NCCL world 1 2^20"), smi,
+             sync_check=False)
     torch.distributed.destroy_process_group()
     worker = subprocess.run(
         [sys.executable, "-m", "webgpu_msm_tpu_torch.parallel._multihost_worker", "0", "1", str(free_port()),
          "--device", "cuda"], capture_output=True, text=True, timeout=300)
-    check(worker.returncode == 0 and "MULTIHOST_OK process=0/1" in worker.stdout,
+    check(worker.returncode == 0 and "MULTIHOST_OK process=0/1" in worker.stdout
+          and " captures=0 " not in worker.stdout,
           f"_multihost_worker 0 1 on NCCL failed ({worker.returncode}):\n{worker.stdout[-3000:]}"
           f"\n{worker.stderr[-3000:]}")
     print("_multihost_worker 0 1 --device cuda: " + worker.stdout.strip().splitlines()[-1])
@@ -1400,8 +1477,10 @@ def main() -> int:
             call = lambda: msm_window_sums_sharded(niels, sc_t, window_size=w_res, n_chunks=C_res,
                                                    chunk_len=L_res // D, mesh=vmesh, mode=mode,
                                                    signed_digits=signed)
-            counts = sharded_call(f"sharded virtual D {D} {mode} 2^20", call, D,
-                                  D if mode == "window_sums" else 1)
+            label = f"sharded virtual D {D} {mode} 2^20"
+            counts = sharded_call(label, call, D, D if mode == "window_sums" else 1)
+            if D == 4:
+                graph_ab(label, stage_graphs, call, sharded_out(label), smi)
             if (D, mode) == (4, "buckets"):
                 tree_launches = counts["padd_masked"]
     del niels
@@ -1443,6 +1522,8 @@ def main() -> int:
     out, job_ms = once_ms(job)
     peak = torch.cuda.max_memory_allocated() / 1e9
     check(window_sums_affine(out, w_res) == jobs[1][1], "sharded plan job: result differs from sum(s) * B")
+    with stage_graphs.eager():
+        check(torch.equal(plan.window_sums(jobs[1][0]), out), "sharded plan job: the graph and eager calls differ")
     busy = profile_call("sharded plan D 4 job 2^20", job, job_ms, top=4)
     busy_ms, n_launches = busy if busy else (float("nan"), 0)
     print(f"sharded plan D 4 job 2^20 wall: warm {job_ms:.1f} ms; device busy {busy_ms:.2f} ms, idle share "
@@ -1540,20 +1621,38 @@ def main() -> int:
     print("trace summary (warm wire 2^20; host clock, 'device msm (wire)' is the queueing): "
           + "; ".join(" ".join(line.split()) for line in trace.summary().splitlines()))
 
-    # 4s. device_affine: the wire call with the affine finish on the card.
-    # It and the naive engine (4t) run last: each profiles about 10^5
-    # plain kernels, after which later profiles on this machine drop some
-    # of their records (PERF.md, PR 13), which the other profiles count.
-    affine = lambda: compute_msm(pts, sc, config=MSMConfig(device_affine=True), device=dev)
-    res, cold_ms, counts = drive("device_affine 2^20", pk, affine, WIRE_KERNELS, others(*WIRE_KERNELS),
-                                 n_batches(N), n_batches(N))
-    check(as_xy(res) == PINNED[20], "device_affine 2^20: result differs from PINNED")
-    res, warm_ms = once_ms(affine)
-    check(as_xy(res) == PINNED[20], "device_affine 2^20 warm call differs from PINNED")
-    print(f"device_affine 2^20: equals PINNED[20]; launches {counts}")
-    print(f"device_affine 2^20 wall: cold {cold_ms / 1e3:.3f} s ({rate(cold_ms)}), "
-          f"warm {warm_ms / 1e3:.3f} s ({rate(warm_ms)}) [{smi}]")
-    profile_call("device_affine 2^20", affine, warm_ms, top=4)
+    # 4s. device_affine: the wire call with the affine finish on the card, one
+    # stage graph `finish_affine_w13_s1` through the finish_affine kernel;
+    # the plain finv_mont must not run (it raises here)
+    def no_plain_inverse(*_):
+        raise RuntimeError("device_affine ran the plain finv_mont")
+
+    real_finv, field_ops.finv_mont = field_ops.finv_mont, no_plain_inverse
+    try:
+        cfg_affine = MSMConfig(device_affine=True)
+        affine = lambda: compute_msm(pts, sc, config=cfg_affine, device=dev)
+        affine_kernels = WIRE_KERNELS + ("finish_affine",)
+        res, cold_ms, counts = drive("device_affine 2^20", pk, affine, affine_kernels, others(*affine_kernels),
+                                     n_batches(N), n_batches(N))
+        check(as_xy(res) == PINNED[20], "device_affine 2^20: result differs from PINNED")
+        check(counts["finish_affine"] == counts["reduce_finish"] == 1, f"device_affine 2^20: launches {counts}")
+        rows["finish_affine"]["launches"] = counts["finish_affine"]
+        res, warm_ms = once_ms(affine)
+        check(as_xy(res) == PINNED[20], "device_affine 2^20 warm call differs from PINNED")
+        print(f"device_affine 2^20: equals PINNED[20]; launches {counts}; no plain finv_mont")
+        print(f"device_affine 2^20 wall: cold {cold_ms / 1e3:.3f} s ({rate(cold_ms)}), "
+              f"warm {warm_ms / 1e3:.3f} s ({rate(warm_ms)}) [{smi}]")
+        report = graph_ab("device_affine 2^20", stage_graphs,
+                          lambda: gpu_engine._dispatch_wire(pts, sc, cfg_affine, dev, True)[0],
+                          lambda out: check(affine_of(out, w20) == PINNED[20], "device_affine 2^20: differs"), smi)
+        finish_key = f"finish_affine_w{w20}_s1"
+        check(any(k[0] == finish_key for k in stage_graphs.CACHE._graphs),
+              f"device_affine 2^20: no {finish_key} graph among {stage_graphs.stats()}")
+        for mode in ("graphs", "eager"):
+            check(report[mode]["device_launches"] < 2000,
+                  f"device_affine 2^20 ({mode}): {report[mode]['device_launches']} device launches")
+    finally:
+        field_ops.finv_mont = real_finv
 
     # 4t. the naive engine at 2^16: a 256-step ladder in plain PyTorch on the
     # card, then the tree sum, one padd_masked launch a level
@@ -1578,7 +1677,7 @@ def main() -> int:
           f"CUDA driver) equal to the launches its capture recorded; e.g. {graphs_checked[0]}")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the builds included")
     print("kernels: " + ", ".join(pk.KERNELS) + "; at the resident shapes: "
-          + ", ".join(RESIDENT_KERNELS + ("accumulate_scan_gather_mma",))
+          + ", ".join(resident_rows)
           + "; at the sharded tree's shape: padd_masked; at the suffix scan's shape: padd_masked; "
           + "at Gs 4: " + ", ".join(gs4_rows))
     print(json.dumps({"kernels": [rows[k] for k in pk.KERNELS]

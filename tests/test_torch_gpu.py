@@ -25,6 +25,8 @@ from webgpu_msm_tpu_torch.utils import cache, convert, fixtures
 from webgpu_msm_tpu_torch.utils.interop import (affine_from_planes, mont_planes_from_points, planes_from_numpy,
                                                planes_to_numpy)
 
+from torch_inputs import mont_window_sums
+
 pytestmark = pytest.mark.gpu
 
 
@@ -61,6 +63,8 @@ def _inputs(name, rng, dev, width=300):
         return (t(rand_planes(rng, (2,), width)),)
     if name == "to_niels":
         return (t(rand_planes(rng, (3,), width)),)
+    if name == "finish_affine":
+        return (t(mont_window_sums(rng, width)),)
     if name in ("accumulate_scan", "accumulate_scan_mma"):
         L = 12
         ids = np.sort(rng.integers(0, 40, size=(width, L)), axis=1).T.astype(np.uint32)
@@ -265,6 +269,36 @@ def test_tensor_core_gathering_scan_equals_cios_gathering_scan_on_card(cuda):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("K", [16, 20])
+def test_finish_affine_on_card_matches_plain(cuda, K):
+    """The affine finish at the resident (K 16) and wire (K 20) windows:
+    every digit of the plain version's, z = 0 mapped to (0, 0)."""
+    mont = planes_from_numpy(mont_window_sums(np.random.default_rng(K), K), cuda)
+    got = pk.finish_affine(mont)
+    assert torch.equal(got, pk.finish_affine_plain(mont))
+    assert not got[:, :, 1].any() and got[:, :, 0].any()
+
+
+def test_device_affine_through_the_stage_graphs_on_card(cuda):
+    """A `device_affine` wire call: its finish is one graph,
+    `finish_affine_w8_s1`, launching `finish_affine` once a call; the
+    graph calls equal the eager call and the oracle."""
+    pts = fixtures.distinct_points_fast(48, seed=57)
+    scalars = fixtures.random_scalars(48, seed=58)
+    pw, sw = fixtures.wire_points(pts), convert.bigints_to_u32_be(scalars)
+    cfg = MSMConfig(window_size=8, n_chunks=4, chunk_len=4, device_affine=True)
+    with cache.eager():
+        want = compute_msm(pw, sw, config=cfg, device=cuda)
+    assert (want.x, want.y) == curve.to_affine(msm.msm(pts, scalars, 8))
+    cache.clear()
+    for _ in range(2):
+        pk.reset_launch_counts()
+        assert compute_msm(pw, sw, config=cfg, device=cuda) == want
+        assert pk.launches["finish_affine"] == 1 and pk.launches["reduce_finish"] == 1
+    assert [k[0] for k in cache.CACHE._graphs] == ["wire_batch_w8_c4x4_s1", "finish_affine_w8_s1"]
+    assert cache.stats()["captures"] == 2
+
+
 @pytest.mark.parametrize("device_affine", [False, True])
 def test_list_input_on_card_matches_oracle(cuda, device_affine):
     """Lists take the planes path: `to_niels`, never a wire conversion."""
@@ -394,9 +428,35 @@ def test_virtual_mesh_of_2_on_card_matches_oracle(cuda, mode):
         "accumulate_scan_gather": 2, "lane_scan": 2, "assemble_buckets": 2, "padd_masked": 1,
         "grouped_running_sum": reductions, "reduce_finish": reductions,
         **{k: 0 for k in ("to_niels_xy", "accumulate_scan", "padd", "to_niels", "accumulate_scan_mma",
-                          "to_niels_xy_rows", "accumulate_scan_gather_mma")},
+                          "to_niels_xy_rows", "accumulate_scan_gather_mma", "finish_affine")},
     }
     assert window_sums_affine(got, w) == curve.to_affine(msm.msm(pts, sc, w))
+
+
+@pytest.mark.parametrize("mode", ["window_sums", "buckets"])
+def test_virtual_mesh_of_2_through_the_stage_graphs_on_card(cuda, mode):
+    """The sharded stages on two shards of cuda:0 through the stage graphs:
+    one graph a stage (both shards replay the one of their shared key,
+    each output a clone), digit for digit the eager call's, twice."""
+    from webgpu_msm_tpu_torch.parallel import default_mesh, msm_window_sums_sharded
+
+    n = 128
+    pts = fixtures.distinct_points_fast(n, seed=59)
+    sc = fixtures.random_scalars(n, seed=60)
+    niels = pk.to_niels(planes_from_numpy(gpu_engine.marshal_points(pts, n), cuda))
+    words = planes_from_numpy(gpu_engine.marshal_scalars(sc, n), cuda)
+    call = lambda: msm_window_sums_sharded(niels, words, window_size=8, n_chunks=8, chunk_len=8,
+                                           mesh=default_mesh(2, device=cuda), mode=mode, signed_digits=True)
+    with cache.eager():
+        want = call()
+    cache.clear()
+    for _ in range(2):
+        assert torch.equal(call(), want)
+    names = sorted(k[0] for k in cache.CACHE._graphs)
+    stat = "chunk_len8_n_chunks8_signed_digitsTrue_window_size8"
+    reduce = "sharded_reduce_D2" if mode == "window_sums" else "sharded_reduce_rep_D2"
+    assert names == sorted([f"sharded_acc_D2_cuda_{stat}", reduce, "sharded_combine_D2"])
+    assert cache.stats()["captures"] == 3
 
 
 @pytest.mark.parametrize("D", [2, 4, 5])

@@ -180,6 +180,67 @@ def test_matches_jax_sharded_on_8_devices(eight_shards, jax_d8):
     assert window_sums_affine(got, W_) == oracle(pts, sc)
 
 
+# ---- the stage names --------------------------------------------------------
+
+
+def jax_stage_names(D, mode, monkeypatch):
+    """The export names the JAX `_sharded_stage` gives each stage on D
+    virtual devices: every exported stage called once with
+    `exported_call` recording its name (nothing traced or compiled)."""
+    from webgpu_msm_tpu.utils import cache as jcache
+
+    names = []
+    monkeypatch.setattr(jms, "_use_stage_exports", lambda: True)
+    monkeypatch.setattr(jcache, "exported_call", lambda name, fn, *args: names.append(name))
+    for _, fn in jms.sharded_stages(mesh=jms.default_mesh(D), mode=mode, **STATIC):
+        if not hasattr(fn, "lower"):  # buckets mode's reduce is a plain jit, no export
+            fn(None)
+    return names
+
+
+@pytest.mark.parametrize("mode", ["window_sums", "buckets"])
+@pytest.mark.parametrize("D", [1, 2, 4])
+def test_stage_names_equal_the_jax_exports(D, mode, monkeypatch):
+    """With `cache.stage_call` recording (a stub in place of the card's
+    graphs: each call returns zeros of its output's shape), one call a
+    shard of accumulate (and of the reduction in window_sums mode), one
+    combine at D > 1 and one reduction in buckets mode, under the JAX
+    export names: `sharded_acc_D{D}_cuda_{stat}` with the JAX `{stat}`
+    string, `sharded_reduce_D{D}`, `sharded_combine_D{D}`, and
+    `sharded_reduce_rep_D{D}` for the JAX `reduce_rep`."""
+    from webgpu_msm_tpu_torch.utils import cache
+
+    K, B = 32, pippenger.n_buckets(W_, True)
+    calls = []
+
+    def stage_call(name, fn, *args, clone=True):
+        calls.append((name, [tuple(a.shape) for a in args]))
+        shape = {"acc": (4, 16, K, B), "combine": args[0].shape[1:]}.get(name.split("_")[1], (4, 16, K))
+        return torch.zeros(shape, dtype=torch.int32)
+
+    monkeypatch.setattr(cache, "stage_call", stage_call)
+    M = C_ * L_
+    msm_window_sums_sharded(torch.zeros((3, 16, D * M), dtype=torch.int32),
+                            torch.zeros((8, D * M), dtype=torch.int32),
+                            mesh=default_mesh(D, device="cpu"), mode=mode, **STATIC)
+    jax_names = jax_stage_names(D, mode, monkeypatch)
+    stat = jax_names[0].split(f"sharded_acc_D{D}_cpu_")[1]
+    assert stat == "chunk_len8_n_chunks8_signed_digitsTrue_window_size8"
+    acc = [(f"sharded_acc_D{D}_cuda_{stat}", [(M, 24), (8, M)])] * D
+    combine = [(f"sharded_combine_D{D}", [(1, 4, 16, K) + ((B,) if mode == "buckets" else ())] * D)]
+    combine = combine if D > 1 else []
+    if mode == "window_sums":
+        want = acc + [(f"sharded_reduce_D{D}", [(4, 16, K, B)])] * D + combine
+    else:
+        want = acc + combine + [(f"sharded_reduce_rep_D{D}", [(4, 16, K, B)])]
+    assert calls == want
+    # JAX: sharded_{name}_D{D}_{backend}_{stat}; the port keeps the backend
+    # and {stat} where there are statics, and runs no combine at D 1
+    from_jax = {j.replace("_cpu_", "_cuda_") if stat in j else j.split("_cpu_")[0]
+                for j in jax_names if D > 1 or not j.startswith("sharded_combine")}
+    assert from_jax == {name for name, _ in want} - {f"sharded_reduce_rep_D{D}"}
+
+
 # ---- the modes, the plan and the checks ------------------------------------
 
 

@@ -7,11 +7,13 @@
 (b) On the CPU `stage_call` runs the stage as it is.
 (c) The cache's bookkeeping, with a stub in place of `torch.cuda.CUDAGraph`
     and the CPU standing in for the card: keys, replays, launch counts,
-    the memory limit, `eager()`, and a capture that fails.
+    the memory limit, `eager()`, a capture that fails, `prepare`, and the
+    sharded stages' captures before their collective.
 
 The graphs themselves run on the card: tests/test_torch_gpu.py.
 """
 import contextlib
+import socket
 
 import numpy as np
 import pytest
@@ -40,13 +42,13 @@ def recorder(calls):
     return call_stage
 
 
-def dispatch_both(path, signed, monkeypatch):
+def dispatch_both(path, signed, affine, monkeypatch):
     """The JAX engine's and the port's stage calls for one dispatch."""
     pts = fixtures.distinct_points_fast(N, seed=90)
     scalars = fixtures.random_scalars(N, seed=91)
     pw, sw = fixtures.wire_points(pts), convert.bigints_to_u32_be(scalars)
-    jcfg = jconfig.MSMConfig(signed_digits=signed, **STATIC)
-    cfg = MSMConfig(signed_digits=signed, **STATIC)
+    jcfg = jconfig.MSMConfig(signed_digits=signed, device_affine=affine, **STATIC)
+    cfg = MSMConfig(signed_digits=signed, device_affine=affine, **STATIC)
     calls = {"jax": [], "port": []}
     monkeypatch.setattr(te, "_call_stage", recorder(calls["jax"]))
     monkeypatch.setattr(gpu_engine, "_call_stage", recorder(calls["port"]))
@@ -59,7 +61,7 @@ def dispatch_both(path, signed, monkeypatch):
     else:  # the planes path, from host arrays or from tensors already on the device
         pad = 48
         planes, words = gpu_engine.marshal_points(pts, pad), gpu_engine.marshal_scalars(scalars, pad)
-        kw = dict(signed_digits=signed, **STATIC)
+        kw = dict(signed_digits=signed, device_affine=affine, **STATIC)
         if path == "planes":
             te._device_msm(planes, words, **kw)
             gpu_engine._device_msm(planes, words, device=CPU, **kw)
@@ -71,10 +73,11 @@ def dispatch_both(path, signed, monkeypatch):
     return calls
 
 
+@pytest.mark.parametrize("affine", [False, True], ids=["finish", "device_affine"])
 @pytest.mark.parametrize("signed", [True, False])
 @pytest.mark.parametrize("path", ["wire", "plan", "planes", "resident"])
-def test_stage_names_and_shapes_equal_the_jax_engine(path, signed, monkeypatch):
-    calls = dispatch_both(path, signed, monkeypatch)
+def test_stage_names_and_shapes_equal_the_jax_engine(path, signed, affine, monkeypatch):
+    calls = dispatch_both(path, signed, affine, monkeypatch)
     jax_calls, port_calls = calls["jax"], calls["port"]
     assert [c[:3] for c in port_calls] == [c[:3] for c in jax_calls]
     # u32 words: uint32 in JAX, the same bits as int32 in the port
@@ -83,7 +86,8 @@ def test_stage_names_and_shapes_equal_the_jax_engine(path, signed, monkeypatch):
     s = int(signed)
     batch = {"wire": "wire_batch", "plan": "fixed_batch"}.get(path, "batch_planes")
     want = (["plan_niels_m16"] * 3 if path == "plan" else []) + [f"{batch}_w8_c4x4_s{s}"] * 3
-    assert [c[0] for c in port_calls] == want + [f"finish_w8_s{s}"]
+    finish = "finish_affine" if affine else "finish"
+    assert [c[0] for c in port_calls] == want + [f"{finish}_w8_s{s}"]
 
 
 def test_stage_call_on_the_cpu_runs_the_stage_as_it_is():
@@ -299,3 +303,120 @@ def test_a_failed_capture_raises_with_the_stage_name(stub_card):
         c.call("wire_batch_w13_c2048x128_s1", fn, torch.zeros(2))
     assert any("wire_batch_w13_c2048x128_s1" in note for note in info.value.__notes__)
     assert c.stats()["graphs"] == c.captures == 0
+
+
+def test_prepare_captures_ahead_and_counts_no_launch(stub_card):
+    """`prepare` runs a new key's first call (the eager run, then the
+    capture) with its launches taken back out; a held key, a key left eager
+    and `eager()` make it do nothing. The next call replays."""
+    c = cache.StageCache()
+    calls = []
+    x = torch.arange(4, dtype=torch.int32)
+    pk.reset_launch_counts()
+    c.prepare("s", counting_stage(calls), x, x)
+    assert len(calls) == 2 and (c.captures, c.replays) == (1, 0) and not any(pk.launches.values())
+    c.prepare("s", counting_stage(calls), x + 1, x)
+    with c.eager():
+        c.prepare("t", counting_stage(calls), x, x)
+    assert len(calls) == 2 and c.stats()["graphs"] == 1
+    (entry,) = c._graphs.values()
+    assert torch.equal(c.call("s", counting_stage(calls), x, x), entry.output)  # a stub replay
+    assert len(calls) == 2 and c.replays == 1 and pk.launches["lane_scan"] == 1
+
+
+def test_prepare_runs_nothing_while_memory_is_short_and_its_call_stays_eager(stub_card):
+    """Short of memory, `prepare` runs nothing and marks the key: its next
+    call (after the collective) runs the stage eagerly and does not try to
+    capture, even with the memory back. The next `prepare` captures."""
+    c = cache.StageCache()
+    calls = []
+    x = torch.arange(4, dtype=torch.int32)
+    stub_card["free"] = stub_card["limit"] - 1
+    c.prepare("s", counting_stage(calls), x, x)
+    assert not calls and (c.captures, c.uncaptured) == (0, 1)
+    stub_card["free"] = stub_card["limit"]
+    assert torch.equal(c.call("s", counting_stage(calls), x, x), 3 * x)
+    assert len(calls) == 1 and c.captures == 0 and not c._graphs
+    c.prepare("s", counting_stage(calls), x, x)
+    assert len(calls) == 3 and c.captures == 1
+    c.call("s", counting_stage(calls), x, x)
+    assert len(calls) == 3 and c.replays == 1
+
+
+@contextlib.contextmanager
+def sharded_world_of_one(monkeypatch):
+    """A gloo process group of one rank and a sharded call over two virtual
+    shards of it, whose all-gathers, captures, card memory reads and
+    combine and reduction runs are logged to the events it yields with
+    the call."""
+    import torch.distributed as dist
+
+    from webgpu_msm_tpu_torch.parallel import msm_sharded
+
+    events = []
+
+    def logged(event, fn):
+        return lambda *a, **k: events.append(event) or fn(*a, **k)
+
+    monkeypatch.setattr(msm_sharded.dist, "all_gather", logged("all_gather", msm_sharded.dist.all_gather))
+    monkeypatch.setattr(cache, "_capture", logged("capture", cache._capture))
+    monkeypatch.setattr(cache, "_card_memory", logged("memory", cache._card_memory))
+    monkeypatch.setattr(msm_sharded, "_combine", logged("combine", msm_sharded._combine))
+    monkeypatch.setattr(msm_sharded, "_window_sums", logged("reduce", msm_sharded._window_sums))
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0)
+    cache.clear()
+    try:
+        mesh = msm_sharded.Mesh((CPU, CPU), group=dist.group.WORLD)
+        yield events, lambda mode: msm_sharded.msm_window_sums_sharded(
+            torch.zeros((3, 16, 32), dtype=torch.int32), torch.zeros((8, 32), dtype=torch.int32),
+            mesh=mesh, mode=mode, **STATIC)
+    finally:
+        cache.clear()
+        dist.destroy_process_group()
+
+
+def after_the_gather(events) -> list:
+    return events[events.index("all_gather") + 1 :]
+
+
+@pytest.mark.parametrize("mode", ["window_sums", "buckets"])
+def test_sharded_captures_precede_the_all_gather(stub_card, mode, monkeypatch):
+    """A rank of a process group (gloo, world 1, two virtual shards) takes
+    every stage graph of a sharded call before it enters `dist.all_gather`:
+    the combine's tree and buckets mode's reduction on stand-ins (the
+    combine stage's `cache.prepare` calls), since a capture synchronizes
+    the card. A second call captures nothing. Graphs are stubs here, so no
+    result is read."""
+    stub_card.update(limit=1 << 30, free=1 << 31)  # room for the sharded graphs
+    with sharded_world_of_one(monkeypatch) as (events, sums):
+        sums(mode)
+        # acc, then reduce (window_sums) or the combine's tree and the reduction (buckets)
+        assert events.count("capture") == 3 and after_the_gather(events) == []  # replays only
+        assert cache.stats()["graphs"] == 3
+        if mode == "window_sums":  # the tree's capture, on stand-ins, before the collective
+            assert [k[0] for k in cache.CACHE._graphs][-1] == "sharded_combine_D2"
+        events.clear()
+        sums(mode)
+        assert events == ["all_gather"] and cache.stats()["captures"] == 3
+
+
+@pytest.mark.parametrize("mode", ["window_sums", "buckets"])
+def test_sharded_stages_stay_eager_after_the_all_gather_while_memory_is_short(stub_card, mode, monkeypatch):
+    """Short of memory, nothing is captured, the combine stage runs no
+    stand-in before the all-gather, and after it only the stages themselves
+    run, eagerly: no capture and no attempt at one. With the memory back,
+    the next call captures every graph before the all-gather."""
+    stub_card["free"] = stub_card["limit"] - 1
+    after = ["combine"] if mode == "window_sums" else ["combine", "reduce"]
+    with sharded_world_of_one(monkeypatch) as (events, sums):
+        sums(mode)
+        assert "capture" not in events and after_the_gather(events) == after
+        assert events[: events.index("all_gather")].count("combine") == 0
+        assert cache.stats()["captures"] == 0 and cache.stats()["uncaptured"] > 0
+        stub_card.update(limit=1 << 30, free=1 << 31)
+        events.clear()
+        sums(mode)
+        assert events.count("capture") == 3 and after_the_gather(events) == []

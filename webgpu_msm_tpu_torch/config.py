@@ -69,7 +69,7 @@ class MSMConfig:
     # reservation, which keeps the thread that feeds the device free).
     cpu_threads: Optional[int] = None
     # Convert the window sums to affine on the device (a batched Fermat
-    # inverse, `field_ops.finv_mont`) before the host combines them. Off by
+    # inverse, the `finish_affine` kernel) before the host combines them. Off by
     # default: a capability of the reference, not a speed-up.
     device_affine: bool = False
     # Multi-GPU (`parallel/msm_sharded.py`): what the shards all-gather.

@@ -27,7 +27,8 @@ Every stage goes through `_call_stage`, under the JAX engine's stage
 names: on a GPU it is one replay of a CUDA graph, captured at the stage's
 first call with its shapes (`utils/cache.py`), so a warm call queues a
 few copies and replays rather than each stage's launches one by one. The
-affine finish (`device_affine`) runs eagerly.
+affine finish (`device_affine`) is one such stage too: the reduction's two
+kernels, then the `finish_affine` kernel for the z inverse.
 """
 from __future__ import annotations
 
@@ -42,7 +43,7 @@ from ..oracle import curve as ocurve
 from ..oracle import field as ofield
 from ..oracle.curve import ExtPoint
 from ..oracle.msm import combine_windows
-from ..ops import field_ops, limbs, pippenger
+from ..ops import limbs, pippenger
 from ..ops.kernels import padd_kernels as pk
 from ..utils import cache, convert, trace
 
@@ -122,23 +123,17 @@ def _finish_impl(carry_st: torch.Tensor) -> torch.Tensor:
 
 def _finish_affine_impl(carry_st: torch.Tensor) -> torch.Tensor:
     """Bucket carry -> affine window sums [2, 16, K] int64, plain domain:
-    the z inverse runs on the device (`field_ops.finv_mont`)."""
-    wsums = pippenger.reduce_buckets(carry_st)
-    zi = field_ops.finv_mont(wsums[3])
-    return torch.stack([
-        field_ops.from_mont(field_ops.mont_mul(wsums[0], zi)),
-        field_ops.from_mont(field_ops.mont_mul(wsums[1], zi)),
-    ])
+    the reduction's Montgomery window sums, then the z inverse, the two
+    products and `from_mont` in the `finish_affine` kernel."""
+    return limbs.as_i64(pk.finish_affine(pippenger.reduce_and_finish(carry_st)[1]))
 
 
 def _call_finish(carry: torch.Tensor, window_size: int, signed: bool,
                  device_affine: bool) -> torch.Tensor:
-    """The finish stage, `finish_w{w}_s{s}`. The affine finish stays eager:
-    its plain `finv_mont` is about 10^5 launches, too many to capture; it
-    joins the stage graphs with a `finv_mont` kernel."""
-    if device_affine:
-        return _finish_affine_impl(carry)
-    return _call_stage(f"finish_w{window_size}_s{int(signed)}", _finish_impl, {}, carry)
+    """The finish stage: `finish_affine_w{w}_s{s}` with `device_affine`,
+    else `finish_w{w}_s{s}`, the JAX stage names."""
+    impl, kind = (_finish_affine_impl, "finish_affine") if device_affine else (_finish_impl, "finish")
+    return _call_stage(f"{kind}_w{window_size}_s{int(signed)}", impl, {}, carry)
 
 
 def _call_stage(name: str, fn, static_kw: dict, *args, clone: bool = True):

@@ -6,9 +6,9 @@ result is fully reduced to [0, p), so any correct Montgomery product gives
 the same digits: these functions agree digit for digit with the JAX
 package and with the CUDA kernels' 32-bit-limb arithmetic.
 
-This is the plain version behind every kernel of `ops/kernels`, and the
-finish stage runs it on the card for the few doublings and `from_mont`
-there (where the JAX package, too, uses jnp and not Pallas).
+This is the plain version behind every kernel of `ops/kernels`; the Gs 1
+reduction runs its `from_mont` on the card (where the JAX package, too,
+uses jnp and not Pallas).
 """
 from __future__ import annotations
 

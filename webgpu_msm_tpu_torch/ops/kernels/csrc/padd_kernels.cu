@@ -19,7 +19,8 @@
 // scan in one launch (lane_scan: a thread block cluster a window, in place
 // of eleven padd_masked launches), the bucket assembly with the batch
 // carry add (assemble_buckets, in place of two padd launches) and the wire
-// input stage (to_niels_xy_rows: wire rows in, the scan's rows out).
+// input stage (to_niels_xy_rows: wire rows in, the scan's rows out). The
+// affine finish (finish_affine) replaces plain XLA ops, not a Pallas kernel.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -539,6 +540,45 @@ reduce_finish_kernel(const int32_t* __restrict__ T, const int32_t* __restrict__ 
 }
 
 // ---------------------------------------------------------------------------
+// finish_affine. Replaces the XLA tail of the JAX package's
+// _finish_affine_impl (engines/tpu_engine.py): the z inverse by Fermat
+// (field_ops.finv_mont, one lax.scan over the bits of p - 2), x * z^-1 and
+// y * z^-1, and from_mont. Input: the Montgomery window sums [4][16][K], as
+// reduce_finish writes them; output: the plain affine (x, y) [2][16][K].
+// One thread a window (K is about 20): the inverse is one dependent chain
+// of 253 squarings and 133 products, left to right from Montgomery 1, so
+// it maps z = 0 to 0 as finv_mont does. Every residue is reduced, so the
+// digits equal the plain version's.
+// ---------------------------------------------------------------------------
+// p - 2 as 32-bit limbs, least significant first: 253 bits, 133 of them set.
+static __constant__ u32 P_MINUS_2_L[8] = {0xffffffffu, 0x0a117fffu, 0xd0000001u, 0x59aa76feu,
+                                          0x5c37b001u, 0x60b44d1eu, 0x9a2ca556u, 0x12ab655eu};
+constexpr int kPMinus2Bits = 253;
+
+extern "C" __global__ void __launch_bounds__(kThreads)
+finish_affine_kernel(const int32_t* __restrict__ mont, int32_t* __restrict__ out, int K) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= K) return;
+  const size_t stride = (size_t)K;
+  u32 z[8], zi[8], v[8];
+  load_fp(z, mont, stride, 48 * stride + k);
+  load_const(zi, R_L);  // Montgomery 1
+#pragma unroll 1
+  for (int i = kPMinus2Bits - 1; i >= 0; i--) {
+    mont_mul(zi, zi, zi);
+    if ((P_MINUS_2_L[i >> 5] >> (i & 31)) & 1u) mont_mul(zi, zi, z);
+  }
+  const u32 one[8] = {1u, 0u, 0u, 0u, 0u, 0u, 0u, 0u};
+#pragma unroll 1
+  for (int c = 0; c < 2; c++) {  // x, then y
+    load_fp(v, mont, stride, 16 * c * stride + k);
+    mont_mul(v, v, zi);
+    mont_mul(v, v, one);  // from_mont
+    store_fp(out, stride, 16 * c * stride + k, v);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Plain C entry points for ctypes: each makes `device` (the index of the
 // tensors' card) current, launches on the given stream of that card and
 // returns cudaGetLastError() (0 on success). Sizes are positive.
@@ -660,6 +700,13 @@ extern "C" int launch_reduce_finish(const void* T, const void* U, void* out_plai
   reduce_finish_kernel<<<K, 2 * P, 256 * P, (cudaStream_t)stream>>>(
       (const int32_t*)T, (const int32_t*)U, (int32_t*)out_plain, (int32_t*)out_mont, G, K, P,
       doublings);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int launch_finish_affine(const void* mont, void* out, int K, int device, void* stream) {
+  if (const int err = use_device(device)) return err;
+  finish_affine_kernel<<<blocks(K, kThreads), kThreads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)mont, (int32_t*)out, K);
   return (int)cudaGetLastError();
 }
 

@@ -1,4 +1,4 @@
-"""Wrappers, plain versions and launch counts of the thirteen point kernels.
+"""Wrappers, plain versions and launch counts of the fourteen kernels.
 
 Each wrapper takes int32 tensors holding u32 bits, at the JAX package's
 layouts (`ops/pallas/padd_kernels.py`). A tensor on the CPU goes to the
@@ -29,6 +29,7 @@ KERNELS = (
     "to_niels_xy", "accumulate_scan", "padd_masked", "padd", "grouped_running_sum",
     "to_niels", "accumulate_scan_mma", "accumulate_scan_gather", "reduce_finish",
     "lane_scan", "assemble_buckets", "to_niels_xy_rows", "accumulate_scan_gather_mma",
+    "finish_affine",
 )
 launches: dict[str, int] = {name: 0 for name in KERNELS}
 
@@ -565,3 +566,25 @@ def reduce_finish(T: torch.Tensor, U: torch.Tensor, n_windows: int, doublings: i
         doublings,
     )
     return plain, mont
+
+
+# ---------------------------------------------------------------------------
+# 14. finish_affine: Montgomery window sums [4, 16, K] (as `reduce_finish`
+#    writes its `mont` output) -> plain affine (x, y) [2, 16, K]: the XLA
+#    tail of the JAX package's `_finish_affine_impl`, z = 0 mapped to 0.
+# ---------------------------------------------------------------------------
+def finish_affine_plain(mont: torch.Tensor) -> torch.Tensor:
+    """`field_ops.finv_mont` of z, two products and `from_mont`."""
+    m = limbs.as_i64(mont)
+    zi = field_ops.finv_mont(m[3])
+    return torch.stack([field_ops.from_mont(field_ops.mont_mul(m[c], zi)) for c in (0, 1)]).to(torch.int32)
+
+
+def finish_affine(mont: torch.Tensor) -> torch.Tensor:
+    K = mont.shape[-1]
+    _shape("finish_affine", mont, (4, 16, K))
+    if not _on_card("finish_affine", mont):
+        return finish_affine_plain(mont)
+    out = torch.empty((2, 16, K), dtype=torch.int32, device=mont.device)
+    _launch("finish_affine", "launch_finish_affine", mont.device, mont.data_ptr(), out.data_ptr(), K)
+    return out

@@ -15,7 +15,8 @@ plain versions.
 
 Each process builds the same global inputs from their seeds, feeds only its
 `host_local_slice`, and checks the result, the same on every process,
-against the oracle; it prints "MULTIHOST_OK ..." on success.
+against the oracle; it prints "MULTIHOST_OK ..." on success, with the
+stage graphs it captured (none on the CPU).
 """
 from __future__ import annotations
 
@@ -45,7 +46,7 @@ def main(argv: list[str]) -> int:
     from ..oracle import msm as omsm
     from ..ops import limbs
     from ..ops.kernels import padd_kernels as pk
-    from ..utils import fixtures
+    from ..utils import cache, fixtures
     from ..utils.interop import planes_from_numpy
     from . import distributed
     from .msm_sharded import sharded_stages, window_sums_affine
@@ -75,27 +76,41 @@ def main(argv: list[str]) -> int:
     words = planes_from_numpy(gpu_engine.marshal_scalars(scalars, n_global)[:, sl], device)
     niels = pk.to_niels(planes)
 
-    # Every stage before the collective runs freely; the processes meet at
-    # a barrier before the combine stage, so that none waits in the
-    # collective while another is still queueing its shards.
-    print(f"[worker {pid}] running the pre-collective stages", flush=True)
+    # Every stage before the collective runs freely (on a card each captures
+    # its graph at its first call); the processes meet at a barrier before
+    # the combine stage, so that none waits in the collective while another
+    # is still queueing its shards or capturing (the JAX worker's compile
+    # barrier). The combine stage captures the graphs after the all-gather
+    # before it enters it.
     stages = sharded_stages(window_size=W, n_chunks=C, chunk_len=L, mesh=mesh, mode=args.mode)
-    out = stages[0][1](niels, words)
-    idx = 1
-    while stages[idx][0] != "combine":
-        out = stages[idx][1](out)
-        idx += 1
-    dist.barrier()
-    print(f"[worker {pid}] at the collective", flush=True)
-    for _, fn in stages[idx:]:
-        out = fn(out)
+
+    def run():
+        out = stages[0][1](niels, words)
+        idx = 1
+        while stages[idx][0] != "combine":
+            out = stages[idx][1](out)
+            idx += 1
+        dist.barrier()
+        print(f"[worker {pid}] at the collective", flush=True)
+        for _, fn in stages[idx:]:
+            out = fn(out)
+        return out
+
+    print(f"[worker {pid}] running the pre-collective stages", flush=True)
+    out = run()
     got = window_sums_affine(limbs.as_i64(out), W)
     want = curve.to_affine(omsm.msm(pts, scalars, window_size=W))
     if got != want:
         raise RuntimeError(f"process {pid}: {got} != the oracle's {want}")
+    if device.type == "cuda":  # a call that replays every graph, and one without them
+        replayed = run()
+        with cache.eager():
+            eager = run()
+        if not (torch.equal(replayed, out) and torch.equal(eager, out)):
+            raise RuntimeError(f"process {pid}: the graph replays or the eager stages differ")
     print(
         f"MULTIHOST_OK process={pid}/{nproc} devices={D} mode={args.mode} "
-        f"device={device} x={got[0]}",
+        f"device={device} captures={cache.stats()['captures']} x={got[0]}",
         flush=True,
     )
     dist.destroy_process_group()

@@ -22,9 +22,10 @@ A `Mesh` is the devices this process drives, one shard each, and an
 optional process group whose ranks drive as many shards each. A device may
 repeat: D shards on one card make a virtual mesh (the counterpart of the
 JAX tests' virtual CPU devices), whose shards time-share that card. Each
-stage is a plain function that loops over this process's shards and
-queues each shard's work on its device without waiting; only the combine
-stage holds the collective.
+stage loops over this process's shards and queues each shard's work on
+its device without waiting, as one stage-graph call on the card
+(`utils/cache.py`, under the JAX export names); only the combine stage
+holds the collective, which runs outside the graphs.
 """
 from __future__ import annotations
 
@@ -38,6 +39,7 @@ import torch.distributed as dist
 
 from ..engines import gpu_engine
 from ..ops import field_ops, limbs, pippenger
+from ..utils import cache
 
 AXIS = "points"  # the axis the point vector is sharded over (the JAX mesh axis name)
 MODES = ("window_sums", "buckets")
@@ -145,54 +147,105 @@ def shard_rows(points: torch.Tensor, mesh: Mesh, n_chunks: int, chunk_len: int) 
 # The stages. window_sums: accumulate -> reduce -> combine; buckets:
 # accumulate -> combine -> reduce (once). Between stages, a list of one
 # int32 tensor a local shard, each on its device; after the combine, one
-# tensor on the first local device.
+# tensor on the first local device. Each shard's work is one call of the
+# stage graphs (`utils/cache.stage_call`) on its device, under the names of
+# the JAX package's `_sharded_stage` exports; `dist.all_gather` runs outside
+# every graph.
 # ---------------------------------------------------------------------------
+
+
+def _stat(static: dict) -> str:
+    """The statics as the JAX `_sharded_stage` writes them into an export's
+    name: "key" + value for each, sorted by key, joined by "_"."""
+    return "_".join(f"{k}{v}" for k, v in sorted(static.items()))
+
+
+def _shard_call(name: str, fn, *args) -> torch.Tensor:
+    """One shard's stage on the device of its first argument, through the
+    stage graphs. The shards of a virtual mesh share the key, and so one
+    graph replayed a shard: each output is a clone (`clone=True`)."""
+    with _on(args[0].device):
+        return cache.stage_call(name, fn, *args)
+
+
+def _accumulate_rows(rows, scalar_words, **static):
+    """One shard's packed rows [C * L, 24] and words -> bucket sums [4, 16, K, B]."""
+    return pippenger.accumulate_rows(rows, limbs.as_i64(scalar_words), **static)
 
 
 def _stage_accumulate(points, scalar_words: torch.Tensor, *, mesh: Mesh, window_size: int,
                       n_chunks: int, chunk_len: int, signed_digits: bool) -> list:
     """This process's shards -> their bucket sums [4, 16, K, B], each one
-    batch of C * L points added into no carry (`accumulate_buckets` with
-    n = C * L). `points`: [3, 16, n_local] Niels planes, or the shards'
-    packed rows (`shard_rows`) as a fixed-base plan keeps them."""
+    batch of C * L points added into no carry, one stage call
+    `sharded_acc_D{D}_cuda_{stat}` a shard. `points`: [3, 16, n_local]
+    Niels planes, or the shards' packed rows (`shard_rows`) as a fixed-base
+    plan keeps them."""
     M = n_chunks * chunk_len
     rows = points if isinstance(points, (list, tuple)) else shard_rows(points, mesh, n_chunks, chunk_len)
     _check_count(scalar_words.shape[-1], mesh, M, "scalars")
-    sums = []
-    for i, (dev, r) in enumerate(zip(mesh.devices, rows)):
-        with _on(dev):
-            sw = limbs.as_i64(scalar_words[:, i * M : (i + 1) * M].to(dev, non_blocking=True))
-            sums.append(pippenger.accumulate_rows(
-                r, sw, window_size=window_size, n_chunks=n_chunks, chunk_len=chunk_len,
-                signed_digits=signed_digits,
-            ))
-    return sums
+    static = dict(window_size=window_size, n_chunks=n_chunks, chunk_len=chunk_len,
+                  signed_digits=signed_digits)
+    name = f"sharded_acc_D{mesh.size}_cuda_{_stat(static)}"
+    fn = functools.partial(_accumulate_rows, **static)
+    return [_shard_call(name, fn, r, scalar_words[:, i * M : (i + 1) * M].to(dev, non_blocking=True))
+            for i, (dev, r) in enumerate(zip(mesh.devices, rows))]
 
 
-def _reduce(bucket_sums: torch.Tensor) -> torch.Tensor:
+def _window_sums(bucket_sums: torch.Tensor) -> torch.Tensor:
     """[4, 16, K, B] bucket sums -> [4, 16, K] int32 Montgomery window sums
-    on their device (`grouped_running_sum`, `reduce_finish`)."""
-    with _on(bucket_sums.device):
-        return pippenger.reduce_and_finish(bucket_sums)[1]
+    (`grouped_running_sum`, `reduce_finish`)."""
+    return pippenger.reduce_and_finish(bucket_sums)[1]
 
 
-def _stage_reduce_local(bucket_sums: Sequence[torch.Tensor]) -> list:
-    """Each local shard's buckets -> its window sums."""
-    return [_reduce(b) for b in bucket_sums]
+def _stage_reduce_local(bucket_sums: Sequence[torch.Tensor], *, mesh: Mesh) -> list:
+    """Each local shard's buckets -> its window sums, `sharded_reduce_D{D}`."""
+    return [_shard_call(f"sharded_reduce_D{mesh.size}", _window_sums, b) for b in bucket_sums]
 
 
-def _stage_gather_combine(local: Sequence[torch.Tensor], *, mesh: Mesh) -> torch.Tensor:
+def _stage_reduce_rep(bucket_sums: torch.Tensor, *, mesh: Mesh) -> torch.Tensor:
+    """buckets mode: the combined buckets -> window sums, once,
+    `sharded_reduce_rep_D{D}`."""
+    return _shard_call(f"sharded_reduce_rep_D{mesh.size}", _window_sums, bucket_sums)
+
+
+def _combine(*parts: torch.Tensor) -> torch.Tensor:
+    """Partial sums [n_i, 4, 16, *rest] in shard order -> their group sum."""
+    return tree_add_points(torch.cat(parts))
+
+
+def _prepare_after_gather(stacked: torch.Tensor, mesh: Mesh, mode: str) -> None:
+    """Capture the graphs that run after the all-gather, on this rank's
+    stacked partials [n_local, 4, 16, *rest] as stand-ins for every rank's:
+    the combine's tree and, in buckets mode, the reduction of the combined
+    buckets (the stage after the combine). A capture synchronizes the card,
+    so a rank captures before it enters the all-gather, as the JAX package
+    compiles every stage before the first collective."""
+    if mesh.size > 1:
+        cache.prepare(f"sharded_combine_D{mesh.size}", _combine, *[stacked] * mesh.world_size)
+    if mode == "buckets":
+        cache.prepare(f"sharded_reduce_rep_D{mesh.size}", _window_sums, stacked[0])
+
+
+def _stage_gather_combine(local: Sequence[torch.Tensor], *, mesh: Mesh,
+                          mode: str = "window_sums") -> torch.Tensor:
     """Every shard's partial sums [4, 16, *rest] -> their group sum, on the
-    first local device: the local partials stacked there, gathered from
-    every rank in rank order (the only collective), then tree-added."""
+    first local device: gathered from every rank in rank order (the only
+    collective, outside the graphs, after the graphs that follow it are
+    captured), then stacked and tree-added in the stage call
+    `sharded_combine_D{D}` (at D 1 there is nothing to add)."""
     dev = mesh.devices[0]
     with _on(dev):
-        stacked = torch.stack([t.to(dev, non_blocking=True) for t in local])
-        if mesh.group is not None:
+        local = [t.to(dev, non_blocking=True) for t in local]
+        if mesh.group is None:
+            parts = [t.unsqueeze(0) for t in local]
+        else:
+            stacked = torch.stack(local)
+            _prepare_after_gather(stacked, mesh, mode)
             parts = [torch.empty_like(stacked) for _ in range(mesh.world_size)]
             dist.all_gather(parts, stacked, group=mesh.group)
-            stacked = torch.cat(parts)
-        return tree_add_points(stacked)
+        if mesh.size == 1:
+            return parts[0][0]
+        return cache.stage_call(f"sharded_combine_D{mesh.size}", _combine, *parts)
 
 
 def sharded_stages(*, window_size: int, n_chunks: int, chunk_len: int, mesh: Mesh,
@@ -200,18 +253,23 @@ def sharded_stages(*, window_size: int, n_chunks: int, chunk_len: int, mesh: Mes
     """The ordered (name, fn) stages of the sharded MSM. The first takes
     (points, scalar_words), each later one the output of the one before;
     exactly one, "combine", holds the collective, so a multi-process
-    caller can meet its peers at a barrier just before it."""
+    caller can meet its peers at a barrier just before it. Every graph of a
+    rank is captured before it enters the collective: the stages before
+    "combine" at their first call, the ones after it on stand-ins just
+    before the all-gather (`_prepare_after_gather`)."""
     if mode not in MODES:
         raise ValueError(f"unknown collective mode {mode!r}; one of {MODES}")
     acc = functools.partial(
         _stage_accumulate, mesh=mesh, window_size=window_size, n_chunks=n_chunks,
         chunk_len=chunk_len, signed_digits=signed_digits,
     )
-    combine = functools.partial(_stage_gather_combine, mesh=mesh)
+    combine = functools.partial(_stage_gather_combine, mesh=mesh, mode=mode)
     if mode == "buckets":
         # gather the raw bucket arrays, tree-add them, reduce once
-        return [("accumulate", acc), ("combine", combine), ("reduce", _reduce)]
-    return [("accumulate", acc), ("reduce", _stage_reduce_local), ("combine", combine)]
+        return [("accumulate", acc), ("combine", combine),
+                ("reduce", functools.partial(_stage_reduce_rep, mesh=mesh))]
+    return [("accumulate", acc), ("reduce", functools.partial(_stage_reduce_local, mesh=mesh)),
+            ("combine", combine)]
 
 
 def _run(stages: list, points, scalar_words: torch.Tensor) -> torch.Tensor:

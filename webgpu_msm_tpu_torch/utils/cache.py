@@ -60,6 +60,13 @@ are illegal while capturing, so other threads of the process (the hybrid
 engine's CPU worker, a loader pinning host memory) go on as usual, and
 their work, queued on other streams, is not recorded.
 
+`prepare(name, fn, *args)` captures a stage's graph ahead of its first
+call, on stand-in arguments of its shapes: the multi-GPU layer's stages
+after the collective (`parallel/msm_sharded.py`). While the card is short
+of memory it runs nothing and marks the key, and the key's next call runs
+its stage eagerly without trying to capture; the next `prepare` tries
+again.
+
 `eager()`: a context manager under which `stage_call` runs `fn` directly
 on the card too, its host arguments copied there first: the counterpart
 of the JAX package's `MSM_NO_EXPORT_CACHE=1`. The tests and
@@ -154,6 +161,7 @@ class StageCache:
     def __init__(self):
         self._graphs: OrderedDict[tuple, _Graph] = OrderedDict()
         self.too_large: dict[tuple, int] = {}
+        self._unprepared: set[tuple] = set()  # keys `prepare` left uncaptured
         self._eager = 0
         self._lock = threading.Lock()
         self.captures = self.replays = self.evictions = self.uncaptured = self.peak_bytes = 0
@@ -170,6 +178,9 @@ class StageCache:
             key = _key(name, device, args)
             if self._eager or key in self.too_large:
                 return fn(*_on(device, args))
+            if key in self._unprepared:  # no capture where `prepare` found no memory
+                self._unprepared.discard(key)
+                return fn(*_on(device, args))
             entry = self._graphs.get(key)
             if entry is None:
                 return self._first_call(key, fn, device, args)
@@ -180,6 +191,33 @@ class StageCache:
             pk.add_launches(entry.launches)
             self.replays += 1
             return entry.output.clone() if clone else entry.output
+
+    def prepare(self, name: str, fn: Callable, *args) -> None:
+        """Capture the graph at the key of `args` now, unless it is held,
+        left eager or the cache is in `eager()`: the first call's eager run
+        and capture, with the eager run's result dropped and its launches
+        taken back out of the counts. A stage whose arguments come out of a
+        collective is prepared on stand-ins of the same shapes before the
+        collective: a capture synchronizes the card first, and must not wait
+        behind a collective that a peer has not joined yet. While the card
+        is short of memory nothing runs, and the key's next call runs
+        eagerly, so that nothing is captured after the collective."""
+        device = _stage_device(args)
+        if device is None:
+            return
+        with self._lock:
+            key = _key(name, device, args)
+            if self._eager or key in self.too_large or key in self._graphs:
+                return
+            if _card_memory(device)[0] < limit(device):
+                self.uncaptured += 1
+            else:
+                with pk.recorded_launches():
+                    self._first_call(key, fn, device, args)
+            if key in self._graphs or key in self.too_large:
+                self._unprepared.discard(key)
+            else:
+                self._unprepared.add(key)
 
     def _first_call(self, key: tuple, fn: Callable, device: torch.device, args):
         """Run fn eagerly (its result is returned), then capture it if the
@@ -236,6 +274,7 @@ class StageCache:
         with self._lock:
             self._graphs.clear()
             self.too_large.clear()
+            self._unprepared.clear()
             self.captures = self.replays = self.evictions = self.uncaptured = self.peak_bytes = 0
         torch.cuda.empty_cache()
 
@@ -252,6 +291,10 @@ CACHE = StageCache()
 
 def stage_call(name: str, fn: Callable, *args, clone: bool = True):
     return CACHE.call(name, fn, *args, clone=clone)
+
+
+def prepare(name: str, fn: Callable, *args) -> None:
+    CACHE.prepare(name, fn, *args)
 
 
 def eager():
