@@ -20,7 +20,7 @@ from webgpu_msm_tpu_torch import MSMConfig, MSMPlan, compute_msm, compute_msm_ba
 from webgpu_msm_tpu_torch.engines import gpu_engine
 from webgpu_msm_tpu_torch.ops import pippenger
 from webgpu_msm_tpu_torch.ops.kernels import padd_kernels as pk
-from webgpu_msm_tpu_torch.oracle import curve, msm
+from webgpu_msm_tpu_torch.oracle import curve, field, msm
 from webgpu_msm_tpu_torch.utils import cache, convert, fixtures
 from webgpu_msm_tpu_torch.utils.interop import (affine_from_planes, mont_planes_from_points, planes_from_numpy,
                                                planes_to_numpy)
@@ -63,7 +63,7 @@ def _inputs(name, rng, dev, width=300):
         return (t(rand_planes(rng, (2,), width)),)
     if name == "to_niels":
         return (t(rand_planes(rng, (3,), width)),)
-    if name == "finish_affine":
+    if name in ("finish_affine", "finish_affine_divsteps"):
         return (t(mont_window_sums(rng, width)),)
     if name in ("accumulate_scan", "accumulate_scan_mma"):
         L = 12
@@ -270,19 +270,36 @@ def test_tensor_core_gathering_scan_equals_cios_gathering_scan_on_card(cuda):
 
 
 @pytest.mark.parametrize("K", [16, 20])
-def test_finish_affine_on_card_matches_plain(cuda, K):
-    """The affine finish at the resident (K 16) and wire (K 20) windows:
-    every digit of the plain version's, z = 0 mapped to (0, 0)."""
+@pytest.mark.parametrize("name", ["finish_affine", "finish_affine_divsteps"])
+def test_finish_affine_on_card_matches_plain(cuda, name, K):
+    """Both affine finish kernels at the resident (K 16) and wire (K 20)
+    windows: every digit of the plain version's, z = 0 mapped to (0, 0)."""
     mont = planes_from_numpy(mont_window_sums(np.random.default_rng(K), K), cuda)
-    got = pk.finish_affine(mont)
+    got = getattr(pk, name)(mont)
     assert torch.equal(got, pk.finish_affine_plain(mont))
     assert not got[:, :, 1].any() and got[:, :, 0].any()
 
 
+def test_divstep_finish_over_a_wide_input_with_edge_values_on_card(cuda):
+    """The divstep kernel over 4 096 random windows after the edge values
+    of z (0, 1, 2, p - 1, p - 2, R mod p, R^2 mod p): digit for digit the
+    Fermat kernel's, and the plain version's on the first 64 windows."""
+    mont = mont_window_sums(np.random.default_rng(30), 4096 + 7)
+    for lane, z in enumerate((0, 1, 2, field.P - 1, field.P - 2, field.R % field.P, field.R ** 2 % field.P)):
+        mont[3, :, lane] = [(z >> (16 * i)) & 0xFFFF for i in range(16)]
+    mont = planes_from_numpy(mont, cuda)
+    got = pk.finish_affine_divsteps(mont)
+    assert torch.equal(got, pk.finish_affine(mont))
+    head = mont[..., :64].contiguous()
+    assert torch.equal(pk.finish_affine_divsteps(head), pk.finish_affine_plain(head))
+    assert not got[:, :, 0].any()
+
+
 def test_device_affine_through_the_stage_graphs_on_card(cuda):
     """A `device_affine` wire call: its finish is one graph,
-    `finish_affine_w8_s1`, launching `finish_affine` once a call; the
-    graph calls equal the eager call and the oracle."""
+    `finish_affine_w8_s1`, launching `finish_affine_divsteps` once a call
+    and the Fermat `finish_affine` never; the graph calls equal the eager
+    call and the oracle."""
     pts = fixtures.distinct_points_fast(48, seed=57)
     scalars = fixtures.random_scalars(48, seed=58)
     pw, sw = fixtures.wire_points(pts), convert.bigints_to_u32_be(scalars)
@@ -294,7 +311,8 @@ def test_device_affine_through_the_stage_graphs_on_card(cuda):
     for _ in range(2):
         pk.reset_launch_counts()
         assert compute_msm(pw, sw, config=cfg, device=cuda) == want
-        assert pk.launches["finish_affine"] == 1 and pk.launches["reduce_finish"] == 1
+        assert pk.launches["finish_affine_divsteps"] == 1 and pk.launches["reduce_finish"] == 1
+        assert pk.launches["finish_affine"] == 0
     assert [k[0] for k in cache.CACHE._graphs] == ["wire_batch_w8_c4x4_s1", "finish_affine_w8_s1"]
     assert cache.stats()["captures"] == 2
 
@@ -428,7 +446,8 @@ def test_virtual_mesh_of_2_on_card_matches_oracle(cuda, mode):
         "accumulate_scan_gather": 2, "lane_scan": 2, "assemble_buckets": 2, "padd_masked": 1,
         "grouped_running_sum": reductions, "reduce_finish": reductions,
         **{k: 0 for k in ("to_niels_xy", "accumulate_scan", "padd", "to_niels", "accumulate_scan_mma",
-                          "to_niels_xy_rows", "accumulate_scan_gather_mma", "finish_affine")},
+                          "to_niels_xy_rows", "accumulate_scan_gather_mma", "finish_affine",
+                          "finish_affine_divsteps")},
     }
     assert window_sums_affine(got, w) == curve.to_affine(msm.msm(pts, sc, w))
 

@@ -194,7 +194,7 @@ def test_every_kernel_has_a_count_and_a_plain_version():
                           "grouped_running_sum", "to_niels", "accumulate_scan_mma",
                           "accumulate_scan_gather", "reduce_finish", "lane_scan",
                           "assemble_buckets", "to_niels_xy_rows", "accumulate_scan_gather_mma",
-                          "finish_affine")
+                          "finish_affine", "finish_affine_divsteps")
     assert set(pk.launches) == set(pk.KERNELS)
     for name in pk.KERNELS:
         # a tensor-core scan is its CIOS scan's wrapper and plain version with use_mma

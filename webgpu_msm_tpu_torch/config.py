@@ -68,9 +68,9 @@ class MSMConfig:
     # alone, all but one beside the GPU (the reference's idle-thread
     # reservation, which keeps the thread that feeds the device free).
     cpu_threads: Optional[int] = None
-    # Convert the window sums to affine on the device (a batched Fermat
-    # inverse, the `finish_affine` kernel) before the host combines them. Off by
-    # default: a capability of the reference, not a speed-up.
+    # Convert the window sums to affine on the device (a divstep inverse a
+    # window, the `finish_affine_divsteps` kernel) before the host combines
+    # them. Off by default: a capability of the reference, not a speed-up.
     device_affine: bool = False
     # Multi-GPU (`parallel/msm_sharded.py`): what the shards all-gather.
     #   "window_sums": each shard's window sums (K points a shard); default

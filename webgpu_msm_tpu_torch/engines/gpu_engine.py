@@ -28,7 +28,7 @@ names: on a GPU it is one replay of a CUDA graph, captured at the stage's
 first call with its shapes (`utils/cache.py`), so a warm call queues a
 few copies and replays rather than each stage's launches one by one. The
 affine finish (`device_affine`) is one such stage too: the reduction's two
-kernels, then the `finish_affine` kernel for the z inverse.
+kernels, then the `finish_affine_divsteps` kernel for the z inverse.
 """
 from __future__ import annotations
 
@@ -123,9 +123,9 @@ def _finish_impl(carry_st: torch.Tensor) -> torch.Tensor:
 
 def _finish_affine_impl(carry_st: torch.Tensor) -> torch.Tensor:
     """Bucket carry -> affine window sums [2, 16, K] int64, plain domain:
-    the reduction's Montgomery window sums, then the z inverse, the two
-    products and `from_mont` in the `finish_affine` kernel."""
-    return limbs.as_i64(pk.finish_affine(pippenger.reduce_and_finish(carry_st)[1]))
+    the reduction's Montgomery window sums, then the z inverse (divsteps)
+    and the products in the `finish_affine_divsteps` kernel."""
+    return limbs.as_i64(pk.finish_affine_divsteps(pippenger.reduce_and_finish(carry_st)[1]))
 
 
 def _call_finish(carry: torch.Tensor, window_size: int, signed: bool,

@@ -45,6 +45,7 @@ SIGNATURES = {
     "launch_assemble_buckets": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "launch_to_niels_xy_rows": (_P, _P, _I, _I, _P),
     "launch_finish_affine": (_P, _P, _I, _I, _P),
+    "launch_finish_affine_divsteps": (_P, _P, _I, _I, _P),
 }
 
 # Kernels whose occupancy the library reports: C entry point

@@ -20,7 +20,9 @@
 // of eleven padd_masked launches), the bucket assembly with the batch
 // carry add (assemble_buckets, in place of two padd launches) and the wire
 // input stage (to_niels_xy_rows: wire rows in, the scan's rows out). The
-// affine finish (finish_affine) replaces plain XLA ops, not a Pallas kernel.
+// affine finish replaces plain XLA ops, not a Pallas kernel: finish_affine
+// (the Fermat chain, kept for the A/B comparison) and, on the path,
+// finish_affine_divsteps (a divstep inverse).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -579,6 +581,195 @@ finish_affine_kernel(const int32_t* __restrict__ mont, int32_t* __restrict__ out
 }
 
 // ---------------------------------------------------------------------------
+// finish_affine_divsteps. The same function as finish_affine, digit for
+// digit, on the device_affine path; the z inverse by Bernstein-Yang
+// divsteps ("Fast constant-time gcd computation and modular inversion",
+// CHES 2019) in the signed 30-bit form of libsecp256k1's modinv32, in place
+// of the Fermat chain of 386 dependent products.
+//
+// One thread a window. f, g, d and e are 9 signed limbs of 30 bits in
+// registers, from f = p, g = z, d = 0, e = 1, so that d * z == f and
+// e * z == g (mod p) throughout. A batch runs 30 branch-free divsteps on
+// the low words of f and g (zeta = -(delta + 1/2), from delta = 1/2), which
+// yield a matrix t with 2^30 * (f', g') = t * (f, g) and |u| + |v|,
+// |q| + |r| <= 2^30; t is applied to f and g exactly and to d and e mod p
+// (adding the multiple of p that clears their low 30 bits), each limb a
+// 32x32->64 multiply-add. The loop ends once g == 0: about 17-18 batches for
+// a random z, at most kDivstepMaxBatches. Then f = +-1, and d * sign(f),
+// brought into [0, p), is the inverse of the residue zR, z^-1 R^-1; a
+// product by R^2 makes it plain z^-1, and a product of the Montgomery x by
+// that is plain x: three products, no from_mont. z = 0 runs no batch and
+// leaves d = 0, so (0, 0), as finv_mont. Bound: the latency of the batches
+// in one thread (about 20 threads a launch), not the card's throughput.
+// ---------------------------------------------------------------------------
+namespace {
+constexpr int kDivstepBatch = 30;       // divsteps a batch: the limb width
+constexpr int kDivstepMaxBatches = 25;  // ceil(733 / 30): CHES 2019's bound for 253 bits
+constexpr int32_t kM30 = 0x3fffffff;
+constexpr u32 kPInv30 = 1;  // p^-1 mod 2^30 (p = 1 mod 2^47)
+}  // namespace
+
+// p as 9 signed 30-bit limbs, least significant first.
+static __constant__ int32_t P30[9] = {1,         675676160, 16,        714981300, 934281561,
+                                      288651632, 173368843, 425174667, 4779};
+
+// kDivstepBatch divsteps on the low words of f (odd) and g from zeta; the
+// new zeta, and t = (u, v, q, r). The entries are kept as u32, which wraps
+// as their two's complement; they lie in [-2^30, 2^30].
+__device__ __forceinline__ int32_t divsteps_30(int32_t zeta, u32 f, u32 g, int32_t t[4]) {
+  u32 u = 1, v = 0, q = 0, r = 1;
+#pragma unroll
+  for (int i = 0; i < kDivstepBatch; i++) {
+    const u32 c1 = (u32)(zeta >> 31);  // zeta < 0
+    const u32 c2 = 0u - (g & 1u);      // g odd
+    g += ((f ^ c1) - c1) & c2;         // g - f (zeta < 0) or g + f, if g is odd
+    q += ((u ^ c1) - c1) & c2;
+    r += ((v ^ c1) - c1) & c2;
+    const u32 c = c1 & c2;           // both: f takes the old g
+    zeta = (zeta ^ (int32_t)c) - 1;  // -zeta - 2, else zeta - 1
+    f += g & c;
+    u += q & c;
+    v += r & c;
+    g >>= 1;
+    u <<= 1;
+    v <<= 1;
+  }
+  t[0] = (int32_t)u;
+  t[1] = (int32_t)v;
+  t[2] = (int32_t)q;
+  t[3] = (int32_t)r;
+  return zeta;
+}
+
+// (f, g) <- t * (f, g) / 2^30, exact: the low 30 bits are zero.
+__device__ __forceinline__ void update_fg_30(int32_t f[9], int32_t g[9], const int32_t t[4]) {
+  int64_t cf = (int64_t)t[0] * f[0] + (int64_t)t[1] * g[0];
+  int64_t cg = (int64_t)t[2] * f[0] + (int64_t)t[3] * g[0];
+  cf >>= 30;
+  cg >>= 30;
+#pragma unroll
+  for (int i = 1; i < 9; i++) {
+    cf += (int64_t)t[0] * f[i] + (int64_t)t[1] * g[i];
+    cg += (int64_t)t[2] * f[i] + (int64_t)t[3] * g[i];
+    f[i - 1] = (int32_t)cf & kM30;
+    g[i - 1] = (int32_t)cg & kM30;
+    cf >>= 30;
+    cg >>= 30;
+  }
+  f[8] = (int32_t)cf;
+  g[8] = (int32_t)cg;
+}
+
+// (d, e) <- (t * (d, e) + p * (md, me)) / 2^30, md and me chosen so that
+// the low 30 bits vanish; d and e in (-2p, p) stay there.
+__device__ __forceinline__ void update_de_30(int32_t d[9], int32_t e[9], const int32_t t[4]) {
+  const int32_t u = t[0], v = t[1], q = t[2], r = t[3];
+  const int32_t sd = d[8] >> 31, se = e[8] >> 31;  // -1 where negative
+  int32_t md = (u & sd) + (v & se);
+  int32_t me = (q & sd) + (r & se);
+  int64_t cd = (int64_t)u * d[0] + (int64_t)v * e[0];
+  int64_t ce = (int64_t)q * d[0] + (int64_t)r * e[0];
+  md -= (int32_t)((kPInv30 * (u32)cd + (u32)md) & (u32)kM30);
+  me -= (int32_t)((kPInv30 * (u32)ce + (u32)me) & (u32)kM30);
+  cd += (int64_t)P30[0] * md;
+  ce += (int64_t)P30[0] * me;
+  cd >>= 30;
+  ce >>= 30;
+#pragma unroll
+  for (int i = 1; i < 9; i++) {
+    cd += (int64_t)u * d[i] + (int64_t)v * e[i] + (int64_t)P30[i] * md;
+    ce += (int64_t)q * d[i] + (int64_t)r * e[i] + (int64_t)P30[i] * me;
+    d[i - 1] = (int32_t)cd & kM30;
+    e[i - 1] = (int32_t)ce & kM30;
+    cd >>= 30;
+    ce >>= 30;
+  }
+  d[8] = (int32_t)cd;
+  e[8] = (int32_t)ce;
+}
+
+// d in (-2p, p) times the sign of `sign` (f's top limb), into [0, p), every
+// limb in [0, 2^30).
+__device__ __forceinline__ void normalize_30(int32_t d[9], int32_t sign) {
+  int32_t add = d[8] >> 31;
+#pragma unroll
+  for (int i = 0; i < 9; i++) d[i] += P30[i] & add;  // (-p, p)
+  const int32_t neg = sign >> 31;
+#pragma unroll
+  for (int i = 0; i < 9; i++) d[i] = (d[i] ^ neg) - neg;
+#pragma unroll
+  for (int i = 1; i < 9; i++) {
+    d[i] += d[i - 1] >> 30;
+    d[i - 1] &= kM30;
+  }
+  add = d[8] >> 31;
+#pragma unroll
+  for (int i = 0; i < 9; i++) d[i] += P30[i] & add;  // [0, p)
+#pragma unroll
+  for (int i = 1; i < 9; i++) {
+    d[i] += d[i - 1] >> 30;
+    d[i - 1] &= kM30;
+  }
+}
+
+// 8 u32 limbs -> 9 limbs of 30 bits; and back, for a value below 2^256.
+__device__ __forceinline__ void to_limbs30(int32_t r[9], const u32 a[8]) {
+#pragma unroll
+  for (int i = 0; i < 9; i++) {
+    const int w = 30 * i / 32, s = 30 * i % 32;
+    u32 x = a[w] >> s;
+    if (s > 2 && w < 7) x |= a[w + 1] << (32 - s);
+    r[i] = (int32_t)(x & (u32)kM30);
+  }
+}
+
+__device__ __forceinline__ void from_limbs30(u32 r[8], const int32_t a[9]) {
+#pragma unroll
+  for (int j = 0; j < 8; j++) {
+    const int i = 32 * j / 30, s = 32 * j % 30;  // s <= 14: two limbs cover 32 bits
+    r[j] = ((u32)a[i] >> s) | ((u32)a[i + 1] << (30 - s));
+  }
+}
+
+extern "C" __global__ void __launch_bounds__(kThreads)
+finish_affine_divsteps_kernel(const int32_t* __restrict__ mont, int32_t* __restrict__ out, int K) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= K) return;
+  const size_t stride = (size_t)K;
+  u32 z[8], zi[8], v[8];
+  load_fp(z, mont, stride, 48 * stride + k);
+  int32_t f[9], g[9], d[9], e[9], t[4];
+#pragma unroll
+  for (int i = 0; i < 9; i++) {
+    f[i] = P30[i];
+    d[i] = 0;
+    e[i] = i == 0;
+  }
+  to_limbs30(g, z);
+  int32_t zeta = -1;  // delta = 1/2
+#pragma unroll 1
+  for (int b = 0; b < kDivstepMaxBatches; b++) {
+    int32_t nz = 0;
+#pragma unroll
+    for (int i = 0; i < 9; i++) nz |= g[i];
+    if (nz == 0) break;
+    zeta = divsteps_30(zeta, (u32)f[0], (u32)g[0], t);
+    update_de_30(d, e, t);
+    update_fg_30(f, g, t);
+  }
+  normalize_30(d, f[8]);
+  from_limbs30(zi, d);  // (zR)^-1 = z^-1 R^-1
+  load_const(v, R2_L);
+  mont_mul(zi, zi, v);  // plain z^-1
+#pragma unroll 1
+  for (int c = 0; c < 2; c++) {  // x, then y: (X R) z^-1 R^-1 = x z^-1
+    load_fp(v, mont, stride, 16 * c * stride + k);
+    mont_mul(v, v, zi);
+    store_fp(out, stride, 16 * c * stride + k, v);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Plain C entry points for ctypes: each makes `device` (the index of the
 // tensors' card) current, launches on the given stream of that card and
 // returns cudaGetLastError() (0 on success). Sizes are positive.
@@ -706,6 +897,14 @@ extern "C" int launch_reduce_finish(const void* T, const void* U, void* out_plai
 extern "C" int launch_finish_affine(const void* mont, void* out, int K, int device, void* stream) {
   if (const int err = use_device(device)) return err;
   finish_affine_kernel<<<blocks(K, kThreads), kThreads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)mont, (int32_t*)out, K);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int launch_finish_affine_divsteps(const void* mont, void* out, int K, int device,
+                                             void* stream) {
+  if (const int err = use_device(device)) return err;
+  finish_affine_divsteps_kernel<<<blocks(K, kThreads), kThreads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)mont, (int32_t*)out, K);
   return (int)cudaGetLastError();
 }

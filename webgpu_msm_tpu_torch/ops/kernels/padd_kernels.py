@@ -1,4 +1,4 @@
-"""Wrappers, plain versions and launch counts of the fourteen kernels.
+"""Wrappers, plain versions and launch counts of the fifteen kernels.
 
 Each wrapper takes int32 tensors holding u32 bits, at the JAX package's
 layouts (`ops/pallas/padd_kernels.py`). A tensor on the CPU goes to the
@@ -29,7 +29,7 @@ KERNELS = (
     "to_niels_xy", "accumulate_scan", "padd_masked", "padd", "grouped_running_sum",
     "to_niels", "accumulate_scan_mma", "accumulate_scan_gather", "reduce_finish",
     "lane_scan", "assemble_buckets", "to_niels_xy_rows", "accumulate_scan_gather_mma",
-    "finish_affine",
+    "finish_affine", "finish_affine_divsteps",
 )
 launches: dict[str, int] = {name: 0 for name in KERNELS}
 
@@ -580,11 +580,29 @@ def finish_affine_plain(mont: torch.Tensor) -> torch.Tensor:
     return torch.stack([field_ops.from_mont(field_ops.mont_mul(m[c], zi)) for c in (0, 1)]).to(torch.int32)
 
 
-def finish_affine(mont: torch.Tensor) -> torch.Tensor:
+def _finish_affine(name: str, mont: torch.Tensor) -> torch.Tensor:
     K = mont.shape[-1]
-    _shape("finish_affine", mont, (4, 16, K))
-    if not _on_card("finish_affine", mont):
+    _shape(name, mont, (4, 16, K))
+    if not _on_card(name, mont):
         return finish_affine_plain(mont)
     out = torch.empty((2, 16, K), dtype=torch.int32, device=mont.device)
-    _launch("finish_affine", "launch_finish_affine", mont.device, mont.data_ptr(), out.data_ptr(), K)
+    _launch(name, "launch_" + name, mont.device, mont.data_ptr(), out.data_ptr(), K)
     return out
+
+
+def finish_affine(mont: torch.Tensor) -> torch.Tensor:
+    """The z inverse by the Fermat chain in the kernel (on no path)."""
+    return _finish_affine("finish_affine", mont)
+
+
+# ---------------------------------------------------------------------------
+# 15. finish_affine_divsteps: the same function as `finish_affine`, digit
+#    for digit, with the z inverse by divsteps (safegcd) in the kernel; the
+#    one the `device_affine` finish launches. Its plain version is
+#    `finish_affine_plain`: the same function.
+# ---------------------------------------------------------------------------
+finish_affine_divsteps_plain = finish_affine_plain
+
+
+def finish_affine_divsteps(mont: torch.Tensor) -> torch.Tensor:
+    return _finish_affine("finish_affine_divsteps", mont)
