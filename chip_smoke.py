@@ -10,23 +10,23 @@
    g++ and OpenMP at the same time (without them the run fails).
 3. Times independent `mad.lo.u32` chains (a probe kernel in this file): the
    card's 32-bit integer multiply rate, which the operations bound of every
-   kernel uses. Runs each of the fifteen kernels and its plain PyTorch version
+   kernel uses. Runs each of the fourteen kernels and its plain PyTorch version
    on the card on seeded inputs at the shapes of the 2^20-point paths,
    requires every output digit to be equal, and times both with CUDA
    events (the grouped sum at the shapes of both reduction passes,
    `padd_masked` also at every level of the naive engine's tree sum,
-   `finish_affine` and `finish_affine_divsteps` on K 20 windows with one
-   z = 0). Holds `finish_affine_divsteps` over 65 536 random Montgomery
-   residues as z after the edge values 0, 1, 2, p - 1, p - 2, R mod p and
-   R^2 mod p, digit for digit against the Fermat `finish_affine` (and its
-   plain version on the first 256), and counts the divstep batches this
-   run's z need, which the operations bound of both finish kernels uses.
+   `finish_affine_divsteps` on K 20 windows with one z = 0). Runs
+   `finish_affine_divsteps` over 65 536 random Montgomery residues as z
+   after the edge values 0, 1, 2, p - 1, p - 2, R mod p and R^2 mod p,
+   digit for digit its plain version's on the edge values and the first
+   1 017 random ones, and counts the divstep batches this run's z need,
+   which its operations bound uses.
    Holds the six kernels of the device-resident path the same way at its
    2^20 shapes (w 16 in one batch of C 2048 x L 512: `to_niels` over 2^20
    points, the gathering scan at L 512 x W 32 768, `lane_scan` at K 16,
    `assemble_buckets` over K 16 x B 32 800 buckets without a carry,
    `grouped_running_sum` at [32, 4, 16, 16 400], `reduce_finish` at 1 025
-   groups a window, both finish kernels at K 16), and the tensor-core gathering
+   groups a window, `finish_affine_divsteps` at K 16), and the tensor-core gathering
    scan (`accumulate_scan_gather(use_mma=True)`) at the gathering scan's
    shape: rows labelled "[resident 2^20]". Prints each kernel's ptxas line with
    its occupancy (warps an SM) where the library reports one.
@@ -54,9 +54,7 @@
      tensor-core scan at the production shape, in turns, required equal;
      then the gathering pair, the CIOS and the tensor-core gathering
      scans at the resident shape (L 512 x W 32 768), in turns, required
-     equal on all three outputs; then the affine finish's pair, the
-     Fermat `finish_affine` and `finish_affine_divsteps`, in turns at K 20
-     and K 16, required equal;
+     equal on all three outputs;
    - the hybrid engine on the 2^20 wire input at `cpu_work_ratio` 0.2
      (cold and warm, and its CPU and GPU shares alone) and at 1.0 (the
      native engine alone, no kernel), and on the 2^16 lists at 0.2 (the
@@ -129,13 +127,13 @@
      result; the graphs' bytes within their limit after every sweep call;
    - `device_affine`, the 2^20 wire call with the affine finish on the
      card: the wire kernels and `finish_affine_divsteps` once a call, the
-     Fermat `finish_affine` never, the plain `finv_mont` made to raise,
+     plain `finv_mont` made to raise,
      `PINNED[20]`, cold and warm wall, and its `graph_ab` (the finish one
      graph, `finish_affine_w13_s1`; fewer than 2 000 device launches a
      call in either mode); the resident call with `device_affine` (phase
-     4o) launches `finish_affine_divsteps` once at K 16 and `finish_affine`
-     never, and a warm graph call and an eager call give its digits; it is
-     timed with either finish kernel in the engine, in turns (an A/B);
+     4o) launches `finish_affine_divsteps` once at K 16, a warm graph
+     call and an eager call give its digits, and it is timed in turns
+     with the call without `device_affine`;
    - last, as it profiles about 10^5 plain kernels (after which this
      machine's profiler drops some records): `engine="naive"`
      at 2^16: `padd_masked` once a level of its tree sum,
@@ -214,14 +212,8 @@ OPS_PER_DIVSTEP_BATCH = 2 * (4 * 9 + 4 * 9 + 2 * 9)
 # inverts its z): the inverse by R^2, x and y by that. Its per-window
 # count, kept in its rows as `per_window_ops`.
 FINISH_AFFINE_PRODUCTS = 3
-# The finish kernels' A/B: rounds of Fermat, divsteps, divsteps, Fermat,
-# and launches a turn.
-FINISH_AB_ROUNDS = 6
-FINISH_AB_REPS = 50
-# The dependent products the Fermat kernel (`finish_affine`) runs a window:
-# z^(p-2) from Montgomery 1 (253 squarings, 133 products), x and y by the
-# inverse, and each from_mont as a product by 1.
-FINISH_AFFINE_CHAIN = 253 + 133 + 2 + 2
+# The resident call with and without `device_affine`: rounds of turns.
+AFFINE_TURNS = 6
 # The wide check of the divstep kernel: this many random windows beside
 # the edge values of z.
 WIDE_WINDOWS = 1 << 16
@@ -281,23 +273,6 @@ def cuda_ms(fn, reps: int) -> float:
 def quartiles(xs: list) -> list:
     """The first quartile, the median and the third quartile of xs."""
     return [float(q) for q in statistics.quantiles(xs, n=4, method="inclusive")] if len(xs) > 1 else list(xs) * 3
-
-
-def traced_kernel_ms(fn, names) -> dict:
-    """{name: the device ms of each launch of its kernel (the symbol
-    `<name>_kernel`) while fn runs}, from a torch.profiler trace."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    out = {name: [] for name in names}
-    for e in prof.events():
-        symbol = e.name.split("(")[0]
-        if e.device_type == DeviceType.CUDA and symbol.endswith("_kernel") and symbol[:-len("_kernel")] in out:
-            out[symbol[:-len("_kernel")]].append(e.time_range.elapsed_us() / 1e3)
-    return out
 
 
 def once_ms(fn):
@@ -380,7 +355,6 @@ def kernel_inputs(gen: torch.Generator, dev, M=1 << 18, K=20, C=2048, L=128, B=4
                                      e_pos.to(torch.int32).to(dev), L,
                                      pts((4,), K * B) if carry else None),
         "to_niels_xy_rows": lambda: (xy_rows.to(dev),),
-        "finish_affine": lambda: (mont_sums(gen, K).to(dev),),
         "finish_affine_divsteps": lambda: (mont_sums(gen, K).to(dev),),
     }
     return {k: f() for k, f in builders.items() if want(k)}
@@ -447,9 +421,10 @@ def divstep_stats(mont: torch.Tensor) -> dict:
 
 def wide_inverse_check(pk, gen: torch.Generator, dev, smi: str) -> dict:
     """The divstep kernel over WIDE_WINDOWS random Montgomery residues as z
-    after the edge values 0, 1, 2, p - 1, p - 2, R mod p and R^2 mod p:
-    digit for digit the Fermat kernel's, and on the first 256 windows the
-    plain version's; both kernels timed at that width."""
+    after the edge values 0, 1, 2, p - 1, p - 2, R mod p and R^2 mod p: on
+    the first 1 024 windows (the edge values among them) digit for digit
+    the plain version's, and the same digits there when those windows are
+    launched alone; timed at the whole width."""
     from webgpu_msm_tpu_torch.oracle.field import P, R
 
     edges = (0, 1, 2, P - 1, P - 2, R % P, R * R % P)
@@ -458,18 +433,16 @@ def wide_inverse_check(pk, gen: torch.Generator, dev, smi: str) -> dict:
         mont[3, :, lane] = torch.tensor([(z >> (16 * i)) & 0xFFFF for i in range(16)], dtype=torch.int32)
     mont = mont.to(dev)
     got = pk.finish_affine_divsteps(mont)
-    check(torch.equal(got, pk.finish_affine(mont)),
-          f"finish_affine_divsteps differs from finish_affine over {mont.shape[-1]} windows")
-    head = mont[..., :256].contiguous()
-    check(torch.equal(pk.finish_affine_divsteps(head), pk.finish_affine_plain(head)),
-          "finish_affine_divsteps differs from its plain version on the first 256 wide windows")
+    head = mont[..., :1024].contiguous()
+    check(torch.equal(got[..., :1024], pk.finish_affine_plain(head)),
+          "finish_affine_divsteps differs from its plain version on the first 1 024 wide windows")
+    check(torch.equal(pk.finish_affine_divsteps(head), got[..., :1024]),
+          "finish_affine_divsteps: the first 1 024 windows differ when launched alone")
     check(not got[:, :, 0].any(), "finish_affine_divsteps: z = 0 not mapped to (0, 0)")
     ms = cuda_ms(lambda: pk.finish_affine_divsteps(mont), 10)
-    fermat_ms = cuda_ms(lambda: pk.finish_affine(mont), 3)
-    print(f"kernel finish_affine_divsteps: equal to finish_affine over {mont.shape[-1]} windows (the edge values "
-          f"of z first, then random residues) and to plain on the first 256; {ms:.4f} ms, finish_affine "
-          f"{fermat_ms:.4f} ms at that width [{smi}]")
-    return {"wide_windows": mont.shape[-1], "wide_ms": ms, "wide_fermat_ms": fermat_ms}
+    print(f"kernel finish_affine_divsteps: over {mont.shape[-1]} windows (the edge values of z first, then random "
+          f"residues) equal to plain on the first 1 024; {ms:.4f} ms at that width [{smi}]")
+    return {"wide_windows": mont.shape[-1], "wide_ms": ms}
 
 
 def tree_sum_levels(gen: torch.Generator, dev, W: int, padd_masked) -> list:
@@ -582,7 +555,7 @@ def bound(name: str, args, ops_per_s: float) -> tuple[float, str]:
     elif name == "padd":
         nbytes += args[0].numel() * 4
         muls = 9 * args[0].shape[-1]
-    elif name in ("finish_affine", "finish_affine_divsteps"):  # the same function
+    elif name == "finish_affine_divsteps":
         # one divstep inverse and 5 K' - 2 products (`finish_least_work`);
         # output: [2, 16, K]
         nbytes += 2 * 16 * args[0].shape[-1] * 4
@@ -988,10 +961,7 @@ def main() -> int:
         "accumulate_scan_gather_mma": (gather_mma, gather_mma_plain, PALLAS + "field_kernels_mxu.py:125",
                                        mma_cu, 3),
         # not a Pallas kernel: the XLA tail of the JAX _finish_affine_impl (finv_mont,
-        # two products, from_mont), on the device_affine finish
-        "finish_affine": (pk.finish_affine, pk.finish_affine_plain,
-                          "webgpu_msm_tpu/engines/tpu_engine.py:81", padd_cu, 20),
-        # the same function with the divstep inverse, on the device_affine finish
+        # two products, from_mont), with the divstep inverse, on the device_affine finish
         "finish_affine_divsteps": (pk.finish_affine_divsteps, pk.finish_affine_plain,
                                    "webgpu_msm_tpu/engines/tpu_engine.py:81", padd_cu, 20),
     }
@@ -1031,11 +1001,6 @@ def main() -> int:
                   f"{tuple(levels[0][0].shape)}; {chain_ms:.4f} ms a level (bound {chain_bound:.4f} ms "
                   f"a level) [{smi}]")
             del levels
-        if kname == "finish_affine":
-            rows[kname]["chain_products"] = FINISH_AFFINE_CHAIN
-            print(f"kernel {kname}: one thread a window, a chain of {FINISH_AFFINE_CHAIN} dependent Montgomery "
-                  f"products a window; its bound counts the function's least work (as the next row), not "
-                  f"the chain's latency [{smi}]")
         if kname == "finish_affine_divsteps":
             rows[kname].update(divstep_stats(args[0]))
             print(f"kernel {kname}: one thread a window, {rows[kname]['divstep_batches']} divstep batches in "
@@ -1066,16 +1031,12 @@ def main() -> int:
         resident_rows[kname] = hold(kname, kern, plain, args, reps, ops_per_s, replaces, source, smi,
                                     RESIDENT)
         torch.cuda.empty_cache()
-    # the affine finish, both kernels, at the resident call's K 16 windows
-    for kname in ("finish_affine", "finish_affine_divsteps"):
-        kern, plain, replaces, source, reps = kernels[kname]
-        mont16 = mont_sums(gen, 16).to(dev)
-        resident_rows[kname] = hold(kname, kern, plain, (mont16,), reps, ops_per_s, replaces, source, smi,
-                                    RESIDENT)
-        if kname == "finish_affine":
-            resident_rows[kname]["chain_products"] = FINISH_AFFINE_CHAIN
-        else:
-            resident_rows[kname].update(divstep_stats(mont16))
+    # the affine finish at the resident call's K 16 windows
+    kern, plain, replaces, source, reps = kernels["finish_affine_divsteps"]
+    mont16 = mont_sums(gen, 16).to(dev)
+    resident_rows["finish_affine_divsteps"] = hold("finish_affine_divsteps", kern, plain, (mont16,), reps, ops_per_s,
+                                                   replaces, source, smi, RESIDENT)
+    resident_rows["finish_affine_divsteps"].update(divstep_stats(mont16))
     print(f"phase resident kernels: {time.perf_counter() - t0:.1f} s")
 
     # 4. the paths. Each is driven with the counts set to 0 just before and
@@ -1298,47 +1259,6 @@ def main() -> int:
           f"[{smi}]")
     del gather_args
 
-    # The affine finish's pair: the Fermat kernel (on no path since the
-    # divstep kernel) and the divstep kernel in turns, at the wire call's K
-    # 20 and the resident call's K 16, required equal: FINISH_AB_ROUNDS
-    # rounds of Fermat, divsteps, divsteps, Fermat, each turn the mean of
-    # FINISH_AB_REPS launches between CUDA events; then the same turns
-    # under the profiler, whose trace gives each launch's own device time
-    # (no launch gap, no host).
-    def finish_ab(mont):
-        order = ("finish_affine", "finish_affine_divsteps", "finish_affine_divsteps", "finish_affine")
-        times = {kname: [] for kname in order}
-        outs = {}
-        for kname in order * FINISH_AB_ROUNDS:
-            call = lambda: getattr(pk, kname)(mont)
-            times[kname].append(cuda_ms(call, FINISH_AB_REPS))
-            outs[kname] = call()
-        check(torch.equal(*outs.values()), f"finish_affine_divsteps differs from finish_affine at K {mont.shape[-1]}")
-        traced = traced_kernel_ms(lambda: [getattr(pk, kname)(mont) for kname in order * FINISH_AB_ROUNDS
-                                           for _ in range(FINISH_AB_REPS)], order)
-        return times, traced
-
-    ab_kernels = ("finish_affine", "finish_affine_divsteps")
-    for K, at in ((20, rows), (16, resident_rows)):
-        mont = mont_sums(gen, K).to(dev)
-        (times, traced), _, counts = drive(f"finish_affine A/B K {K}", pk, lambda: finish_ab(mont), ab_kernels,
-                                           others(*ab_kernels))
-        at["finish_affine"]["launches"] = counts["finish_affine"]  # on no path: its A/B launches
-        for kname in ab_kernels:
-            at[kname].update(ab_ms=quartiles(times[kname])[1], ab_quartiles_ms=quartiles(times[kname]),
-                             ab_runs_ms=times[kname], traced_launches=len(traced[kname]),
-                             traced_quartiles_ms=quartiles(traced[kname]) if traced[kname] else None)
-        spread = lambda xs: "/".join(f"{q:.4f}" for q in quartiles(xs)) if xs else "not traced"
-        print(f"finish_affine A/B K {K}: finish_affine_divsteps equals finish_affine (z = 0 in window 1); "
-              f"{FINISH_AB_ROUNDS} rounds of Fermat, divsteps, divsteps, Fermat, {FINISH_AB_REPS} launches a turn; "
-              f"quartiles of the turns' ms a launch (CUDA events): Fermat {spread(times['finish_affine'])}, "
-              f"divsteps {spread(times['finish_affine_divsteps'])}; quartiles of each launch's device ms "
-              f"(profiler trace, {len(traced['finish_affine'])} / {len(traced['finish_affine_divsteps'])} "
-              f"launches): Fermat {spread(traced['finish_affine'])}, divsteps "
-              f"{spread(traced['finish_affine_divsteps'])}; launches { {k: v for k, v in counts.items() if v} }; "
-              f"no path launches the Fermat one [{smi}]")
-    del mont
-
     # 4h. the hybrid engine on the 2^20 wire input at cpu_work_ratio 0.2: the
     # native engine on the first int(0.2 n) rows in a worker thread while the
     # card computes the rest; the GPU share pads to the same four batches as
@@ -1474,8 +1394,8 @@ def main() -> int:
     graph_ab("resident 2^20", stage_graphs, resident,
              lambda out: check(affine_of(out, w_res) == PINNED[20], "resident 2^20: differs from PINNED"), smi)
     # the resident call with the affine finish: finish_affine_divsteps once
-    # more, at K 16, and the Fermat finish_affine never; a replay of its
-    # finish graph and an eager call give the same digits
+    # more, at K 16; a replay of its finish graph and an eager call give the
+    # same digits
     affine_kernels = RESIDENT_KERNELS + ("finish_affine_divsteps",)
     resident_affine = lambda: gpu_engine._device_msm(pts_t, sc_t, window_size=w_res, n_chunks=C_res,
                                                      chunk_len=L_res, signed_digits=signed, device_affine=True)
@@ -1498,15 +1418,15 @@ def main() -> int:
 
     # What the affine finish adds to the resident call: the call with and
     # without device_affine in turns, warm, through the graphs, the least of
-    # five walls a turn (the kernels' own A/B is in phase 4g).
+    # five walls a turn.
     walls = {"device_affine": [], "window sums": []}
-    for label in ("device_affine", "window sums", "window sums", "device_affine") * FINISH_AB_ROUNDS:
+    for label in ("device_affine", "window sums", "window sums", "device_affine") * AFFINE_TURNS:
         call = resident_affine if label == "device_affine" else resident
         walls[label].append(min(once_ms(call)[1] for _ in range(5)))
     q = {label: quartiles(v) for label, v in walls.items()}
     spread = lambda label: "/".join(f"{x:.3f}" for x in q[label])
     print(f"resident 2^20 with and without device_affine, in turns (warm walls through the graphs, quartiles of "
-          f"{2 * FINISH_AB_ROUNDS} turns): device_affine {spread('device_affine')} ms, window sums "
+          f"{2 * AFFINE_TURNS} turns): device_affine {spread('device_affine')} ms, window sums "
           f"{spread('window sums')} ms; the finish adds {q['device_affine'][1] - q['window sums'][1]:.3f} ms at "
           f"the medians [{smi}]")
     resident_warm_ms = once_ms(resident)[1]  # the warm call, for the collective model (4p)
@@ -1835,7 +1755,7 @@ def main() -> int:
 
     # 4s. device_affine: the wire call with the affine finish on the card, one
     # stage graph `finish_affine_w13_s1` through the finish_affine_divsteps
-    # kernel (the Fermat finish_affine never); the plain finv_mont must not
+    # kernel; the plain finv_mont must not
     # run (it raises here)
     def no_plain_inverse(*_):
         raise RuntimeError("device_affine ran the plain finv_mont")

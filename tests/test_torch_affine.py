@@ -1,5 +1,5 @@
-"""`device_affine` against the JAX package: the `finish_affine` kernel's
-plain version, the affine finish stage, and the wire `compute_msm` with
+"""`device_affine` against the JAX package: the `finish_affine_divsteps`
+kernel's plain version, the affine finish stage, and the wire `compute_msm` with
 the z inverse on the device.
 
 The JAX side runs op by op under `jax.disable_jit()` (the same integer
@@ -83,11 +83,11 @@ def test_finish_affine_plain_matches_the_jax_chain(monkeypatch):
 def test_finish_affine_on_cpu_tensors_runs_the_plain_version_uncounted():
     mont = planes_from_numpy(mont_window_sums(np.random.default_rng(89), 3))
     pk.reset_launch_counts()
-    got = pk.finish_affine(mont)
+    got = pk.finish_affine_divsteps(mont)
     assert torch.equal(got, pk.finish_affine_plain(mont)) and got.dtype == torch.int32
     assert pk.launches == {name: 0 for name in pk.KERNELS}
-    with pytest.raises(ValueError, match="finish_affine"):
-        pk.finish_affine(mont[:3].contiguous())
+    with pytest.raises(ValueError, match="finish_affine_divsteps"):
+        pk.finish_affine_divsteps(mont[:3].contiguous())
 
 
 def test_finish_affine_matches_jax_and_oracle(monkeypatch):

@@ -63,7 +63,7 @@ def _inputs(name, rng, dev, width=300):
         return (t(rand_planes(rng, (2,), width)),)
     if name == "to_niels":
         return (t(rand_planes(rng, (3,), width)),)
-    if name in ("finish_affine", "finish_affine_divsteps"):
+    if name == "finish_affine_divsteps":
         return (t(mont_window_sums(rng, width)),)
     if name in ("accumulate_scan", "accumulate_scan_mma"):
         L = 12
@@ -126,6 +126,8 @@ def _kernel_and_plain(name):
     if name == "accumulate_scan_gather_mma":
         return (lambda *a: pk.accumulate_scan_gather(*a, use_mma=True),
                 lambda *a: pk.accumulate_scan_gather_plain(*a, use_mma=True))
+    if name == "finish_affine_divsteps":
+        return pk.finish_affine_divsteps, pk.finish_affine_plain
     return getattr(pk, name), getattr(pk, name + "_plain")
 
 
@@ -177,6 +179,37 @@ def test_tree_sum_thread_plans_on_card(cuda, Gs, width, plan):
     T, U = s[0].contiguous(), s[-1].contiguous()
     for g, w in zip(pk.reduce_finish(T, U, 1, 4), pk.reduce_finish_plain(T, U, 1, 4)):
         assert torch.equal(g, w)
+
+
+def test_reduce_finish_refuses_a_plan_it_cannot_gather_on_card(cuda, monkeypatch):
+    """Block 0 of a cluster of 8 gathers 4 x 8 sums into its lanes' slots,
+    so it needs 32 lanes a block: a plan of 8 lanes raises at the launch and
+    runs nothing."""
+    T = planes_from_numpy(rand_planes(np.random.default_rng(5), (4,), 129), cuda)
+    monkeypatch.setattr(pk, "_finish_plan", lambda G: (8, 8))
+    with pytest.raises(RuntimeError, match="reduce_finish: kernel launch failed"):
+        pk.reduce_finish(T, T, 1, 5)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("w", [13, 16])
+def test_finish_graph_replays_give_the_same_digits_on_card(cuda, w):
+    """The finish stage on random bucket sums at the wire (w 13: K 20 of
+    129 groups) and the resident (w 16: K 16 of 1 025 groups) shapes: the
+    capturing call and two replays of its graph on the same carry, each
+    digit for digit the eager finish, one `reduce_finish` launch a call. A
+    replay runs the cluster kernel with nothing reset between launches."""
+    shape = gpu_engine._identity_carry(w, True, cuda).shape
+    carry = planes_from_numpy(rand_planes(np.random.default_rng(w), (4,), shape[2] * shape[3]), cuda)
+    carry = carry.reshape(shape)
+    cache.clear()
+    with cache.eager():
+        want = gpu_engine._call_finish(carry, w, True, False)
+    for _ in range(3):
+        pk.reset_launch_counts()
+        assert torch.equal(gpu_engine._call_finish(carry, w, True, False), want)
+        assert pk.launches["reduce_finish"] == 1
+    assert (cache.stats()["captures"], cache.stats()["replays"]) == (1, 2)
 
 
 @pytest.mark.parametrize("C", [1, 3, 300, 2048, 4096])
@@ -270,12 +303,11 @@ def test_tensor_core_gathering_scan_equals_cios_gathering_scan_on_card(cuda):
 
 
 @pytest.mark.parametrize("K", [16, 20])
-@pytest.mark.parametrize("name", ["finish_affine", "finish_affine_divsteps"])
-def test_finish_affine_on_card_matches_plain(cuda, name, K):
-    """Both affine finish kernels at the resident (K 16) and wire (K 20)
+def test_finish_affine_on_card_matches_plain(cuda, K):
+    """The affine finish kernel at the resident (K 16) and wire (K 20)
     windows: every digit of the plain version's, z = 0 mapped to (0, 0)."""
     mont = planes_from_numpy(mont_window_sums(np.random.default_rng(K), K), cuda)
-    got = getattr(pk, name)(mont)
+    got = pk.finish_affine_divsteps(mont)
     assert torch.equal(got, pk.finish_affine_plain(mont))
     assert not got[:, :, 1].any() and got[:, :, 0].any()
 
@@ -283,23 +315,23 @@ def test_finish_affine_on_card_matches_plain(cuda, name, K):
 def test_divstep_finish_over_a_wide_input_with_edge_values_on_card(cuda):
     """The divstep kernel over 4 096 random windows after the edge values
     of z (0, 1, 2, p - 1, p - 2, R mod p, R^2 mod p): digit for digit the
-    Fermat kernel's, and the plain version's on the first 64 windows."""
+    plain version's on the edge values and the first 505 random windows,
+    and the same digits for those windows when they are launched alone."""
     mont = mont_window_sums(np.random.default_rng(30), 4096 + 7)
     for lane, z in enumerate((0, 1, 2, field.P - 1, field.P - 2, field.R % field.P, field.R ** 2 % field.P)):
         mont[3, :, lane] = [(z >> (16 * i)) & 0xFFFF for i in range(16)]
     mont = planes_from_numpy(mont, cuda)
     got = pk.finish_affine_divsteps(mont)
-    assert torch.equal(got, pk.finish_affine(mont))
-    head = mont[..., :64].contiguous()
-    assert torch.equal(pk.finish_affine_divsteps(head), pk.finish_affine_plain(head))
+    head = mont[..., :512].contiguous()
+    assert torch.equal(got[..., :512], pk.finish_affine_plain(head))
+    assert torch.equal(pk.finish_affine_divsteps(head), got[..., :512])
     assert not got[:, :, 0].any()
 
 
 def test_device_affine_through_the_stage_graphs_on_card(cuda):
     """A `device_affine` wire call: its finish is one graph,
-    `finish_affine_w8_s1`, launching `finish_affine_divsteps` once a call
-    and the Fermat `finish_affine` never; the graph calls equal the eager
-    call and the oracle."""
+    `finish_affine_w8_s1`, launching `finish_affine_divsteps` once a call;
+    the graph calls equal the eager call and the oracle."""
     pts = fixtures.distinct_points_fast(48, seed=57)
     scalars = fixtures.random_scalars(48, seed=58)
     pw, sw = fixtures.wire_points(pts), convert.bigints_to_u32_be(scalars)
@@ -312,7 +344,6 @@ def test_device_affine_through_the_stage_graphs_on_card(cuda):
         pk.reset_launch_counts()
         assert compute_msm(pw, sw, config=cfg, device=cuda) == want
         assert pk.launches["finish_affine_divsteps"] == 1 and pk.launches["reduce_finish"] == 1
-        assert pk.launches["finish_affine"] == 0
     assert [k[0] for k in cache.CACHE._graphs] == ["wire_batch_w8_c4x4_s1", "finish_affine_w8_s1"]
     assert cache.stats()["captures"] == 2
 
@@ -446,8 +477,7 @@ def test_virtual_mesh_of_2_on_card_matches_oracle(cuda, mode):
         "accumulate_scan_gather": 2, "lane_scan": 2, "assemble_buckets": 2, "padd_masked": 1,
         "grouped_running_sum": reductions, "reduce_finish": reductions,
         **{k: 0 for k in ("to_niels_xy", "accumulate_scan", "padd", "to_niels", "accumulate_scan_mma",
-                          "to_niels_xy_rows", "accumulate_scan_gather_mma", "finish_affine",
-                          "finish_affine_divsteps")},
+                          "to_niels_xy_rows", "accumulate_scan_gather_mma", "finish_affine_divsteps")},
     }
     assert window_sums_affine(got, w) == curve.to_affine(msm.msm(pts, sc, w))
 

@@ -1,7 +1,7 @@
 """The two kernels redesigned for the H100, through their plain versions:
 the scan that gathers its own rows and writes bucket partial sums
-(`accumulate_scan_gather`), and the tree reduction (`grouped_running_sum`,
-`reduce_finish`).
+(`accumulate_scan_gather`), and the tree reduction (`grouped_running_sum`;
+`reduce_finish` has its own tests, tests/test_torch_reduce_finish.py).
 
 The scan is held digit for digit against the dense pipeline it replaces
 (row gather, `accumulate_scan_plain`, a select of the staged accumulators);
@@ -160,7 +160,7 @@ def test_tree_grouped_running_sum_matches_serial_chain_as_points(Gs, threads):
 
 @pytest.mark.parametrize("Gs,lanes,most,want", [
     (32, 2580, 256, (8, 4)),   # the first pass of a 2^20 MSM: the card is full at 8 threads a lane
-    (129, 40, 128, (128, 2)),  # its second pass, inside reduce_finish
+    (129, 40, 128, (128, 2)),  # a cap on the threads: chunks of 2
     (129, 40, 256, (256, 1)),
     (1, 6, 256, (1, 1)),
     (3, 6, 256, (4, 1)),

@@ -40,11 +40,10 @@ SIGNATURES = {
     "launch_accumulate_scan_gather": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "launch_accumulate_scan_gather_mma": (_P,) * 8 + (_I, _I, _I, _I, _I, _P),
     "launch_grouped_running_sum": (_P, _P, _P, _I, _I, _I, _I, _P),
-    "launch_reduce_finish": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "launch_reduce_finish": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "launch_lane_scan": (_P, _P, _P, _P, _I, _I, _I, _P),
     "launch_assemble_buckets": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "launch_to_niels_xy_rows": (_P, _P, _I, _I, _P),
-    "launch_finish_affine": (_P, _P, _I, _I, _P),
     "launch_finish_affine_divsteps": (_P, _P, _I, _I, _P),
 }
 

@@ -14,14 +14,14 @@
 // inside one thread here. The kernels the 2^20 call spent most on were
 // designed again for this card: accumulate_scan_gather (four threads a lane,
 // rows gathered in the kernel, bucket partial sums in place of the dense
-// staged tensor), the tree reduction of grouped_running_sum and
-// reduce_finish (several threads a lane through shared memory), the lane
-// scan in one launch (lane_scan: a thread block cluster a window, in place
-// of eleven padd_masked launches), the bucket assembly with the batch
-// carry add (assemble_buckets, in place of two padd launches) and the wire
-// input stage (to_niels_xy_rows: wire rows in, the scan's rows out). The
-// affine finish replaces plain XLA ops, not a Pallas kernel: finish_affine
-// (the Fermat chain, kept for the A/B comparison) and, on the path,
+// staged tensor), the tree reduction of grouped_running_sum (several
+// threads a lane through shared memory), the end of the reduction
+// (reduce_finish: a thread block cluster a window, four threads a point),
+// the lane scan in one launch (lane_scan: a thread block cluster a window,
+// in place of eleven padd_masked launches), the bucket assembly with the
+// batch carry add (assemble_buckets, in place of two padd launches) and the
+// wire input stage (to_niels_xy_rows: wire rows in, the scan's rows out).
+// The affine finish replaces plain XLA ops, not a Pallas kernel:
 // finish_affine_divsteps (a divstep inverse).
 
 #include <cooperative_groups.h>
@@ -498,94 +498,305 @@ grouped_running_sum_kernel(const int32_t* __restrict__ s, int32_t* __restrict__ 
 // ---------------------------------------------------------------------------
 // reduce_finish. Replaces the plain XLA ops that end the JAX package's
 // reduce_buckets (ops/pippenger.py) after its second grouped_running_sum
-// call, and the from_mont of the finish stage. Input: the first pass's
-// T and U [4][16][K*G] (lane k * G + g). Block k reduces window k: P threads
-// take sum_g g * T_g (tree_sums' U output over the T lanes), P more take
-// sum_g U_g (its T output over the U lanes), side by side; then one thread
-// doubles the first `doublings` times (dbl-2008-hwcd), adds the second, and
-// writes the window sum in the Montgomery domain and, through a product
-// with 1, in the plain domain: [4][16][K] each. A few dozen lanes: bound by
-// the chain of adds, which the tree shortens from 2 * G - 1 to about
-// 2 * log2 P + 3 * ceil(G / P).
+// call, and the from_mont of the finish stage. Input: the first pass's T and
+// U [4][16][K*G] (group g of window k at lane k * G + g). Output, per window,
+// W = 2^d * sum_g g * T_g + sum_g U_g in the Montgomery and in the plain
+// domain, [4][16][K] each.
+//
+// Bound: the latency of dependent point operations. One thread's unified
+// add is a chain of about 14 500 cycles (8.5 us on an H100, as much with
+// one warp an SM as with four: scripts/torch_reduce_probe.py), and a window
+// holds a few thousand adds, so below Gs 4 the card's throughput never
+// binds. The design shortens the chain and each of its links:
+//   - a quad of four threads holds a point, thread `role` its coordinate
+//     (X, Y, T, Z): an add is three rounds of one product a thread, a
+//     doubling two (quad_add, quad_double), the operands passed by shuffle;
+//   - window k is a thread block cluster of M blocks of NL lanes, N = M * NL
+//     lanes, a power of two at most G (the wrapper's _finish_plan), on M SMs;
+//   - lane n walks groups g = i * N + n for i = I - 1 .. 0 (I = ceil(G / N))
+//     with two quads: one over T keeps s_n = sum_i T_g and r_n = sum_i i *
+//     T_g (r += run for i >= 1), the other over U keeps u_n = sum_i U_g (two
+//     links a group on the longer chain, not three). A warp reads
+//     consecutive g, each T_g and U_g once. Then sum_g g * T_g = N * sum_n
+//     r_n + sum_n n * s_n;
+//   - a fold over n, lowest bit first, of four sums an element: rho' =
+//     (rho_2p + rho_2p+1) + sigma_2p+1, sigma' = 2 (sigma_2p + sigma_2p+1),
+//     tau' = 2 (tau_2p + tau_2p+1), ups' = ups_2p + ups_2p+1, from rho
+//     empty, sigma = s, tau = r, ups = u. sum_n (rho_n + n sigma_n + tau_n)
+//     keeps its value, so after log2 N levels rho + tau = sum_g g * T_g (tau
+//     has gathered the factor N) and ups = sum_g U_g: two dependent adds a
+//     level (a doubling is a unified add of a point with itself) and no
+//     scalar multiple but doublings. The levels inside a block go through
+//     shared memory with one barrier a level (an add takes thousands of
+//     cycles, a barrier tens); then block 0 gathers the other blocks'
+//     elements from their shared memory (distributed shared memory, two
+//     cluster barriers) and runs the last log2 M levels;
+//   - the tail in quad 0 of block 0: T* = rho + tau, d doublings, + ups, and
+//     each thread's coordinate through from_mont: four products on four
+//     threads.
+// An empty value stands for the identity and is never added: an add with it
+// is skipped, here and in the plain version alike (_fold_sums in
+// padd_kernels.py adds in exactly this order; extended coordinates are not
+// canonical, so only then are the digits equal). Shared memory marks it by
+// limb 7 of z = 0xffffffff, which no value below p has. Quad operations and
+// the branches around them are warp-uniform (__any_sync): the shuffles need
+// every lane of the warp.
 // ---------------------------------------------------------------------------
-extern "C" __global__ void __launch_bounds__(256)
+namespace {
+constexpr u32 kFull = 0xffffffffu;
+constexpr u32 kEmpty = 0xffffffffu;  // limb 7 of z in an empty slot
+constexpr int kFinishThreads = 256;  // the most threads a block: 32 lanes of two quads
+constexpr int kFoldOrder = 0x2031;   // fold items: sigma (1), ups (3), rho (0), tau (2)
+}  // namespace
+
+__device__ __forceinline__ void copy8(u32 r[8], const u32 a[8]) {
+#pragma unroll
+  for (int i = 0; i < 8; i++) r[i] = a[i];
+}
+
+// The last round of an add or a doubling: X = E*F, Y = G*H, T = E*H, Z = F*G.
+__device__ __forceinline__ void quad_out(u32 r[8], const u32 e[8], const u32 f[8], const u32 g[8],
+                                         const u32 h[8], int role) {
+  u32 lhs[8], rhs[8];
+#pragma unroll
+  for (int i = 0; i < 8; i++) {
+    lhs[i] = role == 1 ? g[i] : (role == 3 ? f[i] : e[i]);
+    rhs[i] = role == 0 ? f[i] : (role == 3 ? g[i] : h[i]);
+  }
+  mont_mul(r, lhs, rhs);
+}
+
+// r = p + q (unified add-2008-hwcd-3) over a quad: each thread holds
+// coordinate `role` of p and q and gets that of r. Every product is reduced
+// below p, so A and B times Montgomery 1, D = Z1 Z2 times 2R and C = (T1 T2)
+// times 2dR are unified_add's residues: its digits. r may alias p or q.
+__device__ __forceinline__ void quad_add(u32 r[8], const u32 p[8], const u32 q[8], int role) {
+  const int base = (threadIdx.x & 31) & ~3;
+  u32 po[8], qo[8], u[8], v[8], w[8], k[8];
+#pragma unroll
+  for (int i = 0; i < 8; i++) {
+    po[i] = __shfl_xor_sync(kFull, p[i], 1);  // role 0 gets Y, role 1 gets X
+    qo[i] = __shfl_xor_sync(kFull, q[i], 1);
+  }
+  u32 pd[8], ps[8], qd[8], qs[8];
+  fsub(pd, po, p);  // role 0: Y1 - X1
+  fadd(ps, p, po);  // role 1: Y1 + X1
+  fsub(qd, qo, q);
+  fadd(qs, q, qo);
+#pragma unroll
+  for (int i = 0; i < 8; i++) {
+    u[i] = role == 0 ? pd[i] : (role == 1 ? ps[i] : p[i]);
+    v[i] = role == 0 ? qd[i] : (role == 1 ? qs[i] : q[i]);
+    k[i] = role == 2 ? TWO_D_R_L[i] : (role == 3 ? TWO_R_L[i] : R_L[i]);
+  }
+  mont_mul(w, u, v);
+  mont_mul(w, w, k);  // A, B, C = 2d T1 T2, D = 2 Z1 Z2
+  u32 a[8], b[8], c[8], d[8], e[8], f[8], g[8], h[8];
+#pragma unroll
+  for (int i = 0; i < 8; i++) {
+    a[i] = __shfl_sync(kFull, w[i], base);
+    b[i] = __shfl_sync(kFull, w[i], base + 1);
+    c[i] = __shfl_sync(kFull, w[i], base + 2);
+    d[i] = __shfl_sync(kFull, w[i], base + 3);
+  }
+  fsub(e, b, a);
+  fsub(f, d, c);
+  fadd(g, d, c);
+  fadd(h, b, a);
+  quad_out(r, e, f, g, h, role);
+}
+
+// r = 2p (dbl-2008-hwcd, point_double's digits) over a quad: A = X^2,
+// B = Y^2, (X + Y)^2 and Z^2 in one round, then the last. r may alias p.
+__device__ __forceinline__ void quad_double(u32 r[8], const u32 p[8], int role) {
+  const int base = (threadIdx.x & 31) & ~3;
+  u32 x[8], y[8], u[8], w[8];
+#pragma unroll
+  for (int i = 0; i < 8; i++) {
+    x[i] = __shfl_sync(kFull, p[i], base);
+    y[i] = __shfl_sync(kFull, p[i], base + 1);
+  }
+  fadd(u, x, y);
+#pragma unroll
+  for (int i = 0; i < 8; i++) u[i] = role == 2 ? u[i] : p[i];
+  mont_mul(w, u, u);
+  u32 a[8], b[8], c[8], d[8], e[8], f[8], g[8], h[8];
+#pragma unroll
+  for (int i = 0; i < 8; i++) {
+    a[i] = __shfl_sync(kFull, w[i], base);
+    b[i] = __shfl_sync(kFull, w[i], base + 1);
+    e[i] = __shfl_sync(kFull, w[i], base + 2);
+    c[i] = __shfl_sync(kFull, w[i], base + 3);
+  }
+  fadd(c, c, c);
+  fneg(d, a);
+  fsub(h, d, b);
+  fadd(e, e, h);
+  fadd(g, d, b);
+  fsub(f, g, c);
+  quad_out(r, e, f, g, h, role);
+}
+
+// a <- a + b where both are points; the other one where one is empty; ae and
+// be say which are. Every lane of the warp calls it.
+__device__ __forceinline__ void quad_add_skip(u32 a[8], bool& ae, const u32 b[8], bool be,
+                                              int role) {
+  const bool both = !ae && !be;
+  if (__any_sync(kFull, both)) {
+    u32 s[8];
+    quad_add(s, a, b, role);
+    if (both) copy8(a, s);
+  }
+  if (ae && !be) copy8(a, b);
+  ae = ae && be;
+}
+
+// A point slot of the block's shared memory: word w of slot j at sm[w * S + j]
+// (x in words 0-7, y 8-15, t 16-23, z 24-31); thread `role` of a quad moves its
+// coordinate. A negative slot is empty. Returns whether the slot is empty.
+__device__ __forceinline__ bool quad_get(u32 v[8], const u32* sm, int S, int slot, int role) {
+  if (slot < 0) return true;
+#pragma unroll
+  for (int i = 0; i < 8; i++) v[i] = sm[(8 * role + i) * S + slot];
+  return sm[31 * S + slot] == kEmpty;
+}
+
+__device__ __forceinline__ void quad_put(u32* sm, int S, int slot, const u32 v[8], bool empty,
+                                         int role) {
+  if (!empty) {
+#pragma unroll
+    for (int i = 0; i < 8; i++) sm[(8 * role + i) * S + slot] = v[i];
+  } else if (role == 3) {
+    sm[31 * S + slot] = kEmpty;
+  }
+}
+
+// The slot of sum q (0 rho, 1 sigma, 2 tau, 3 ups) of element e after fold
+// level L, which leaves E elements in a block of NL lanes (S = 3 NL slots):
+//   L 0, the walk's: sigma = s at e, tau = r at NL + e, ups = u at 2 NL + e,
+//     rho empty;
+//   L 1, in place in each pair's slots: rho at 2e + 1 (element 2e + 1's s,
+//     unchanged), sigma 2e, tau NL + 2e, ups 2 NL + 2e;
+//   odd L from 3 on: slot q E + e of the s slots;
+//   even L from 2 on: entry q E + e of the odd r and u slots.
+__device__ __forceinline__ int fold_slot(int L, int q, int e, int E, int NL) {
+  if (L == 0) return q == 0 ? -1 : (q - 1) * NL + e;
+  if (L == 1) return q == 0 ? 2 * e + 1 : (q - 1) * NL + 2 * e;
+  const int j = q * E + e;
+  if (L & 1) return j;
+  return j < NL / 2 ? NL + 2 * j + 1 : 2 * NL + 2 * (j - NL / 2) + 1;
+}
+
+// Fold level L: element p < E from elements 2p and 2p + 1 of level L - 1.
+// Item j < 4E takes sum (kFoldOrder >> 4 (j / E)) & 15 of element j % E, and
+// the block's QB quads take the items in turn: at level 1 the rho items keep
+// their slot and the tau items are empty unless a quad walked two groups, so
+// sigma and ups come first. Each item reads only its own pair's slots of its
+// own sum, so level 1 can write in place. Ends with a block barrier.
+__device__ void fold_level(u32* sm, int NL, int L, int E, int quad, int QB, int role) {
+  const int S = 3 * NL;
+  for (int j0 = 0; j0 < 4 * E; j0 += QB) {
+    const int j = j0 + quad;
+    const bool live = j < 4 * E;
+    if (!__any_sync(kFull, live)) continue;
+    const int q = (kFoldOrder >> (4 * ((live ? j : 0) / E))) & 15, p = (live ? j : 0) % E;
+    u32 a[8], b[8];
+    bool ae = quad_get(a, sm, S, fold_slot(L - 1, q, 2 * p, 2 * E, NL), role) || !live;
+    bool be = quad_get(b, sm, S, fold_slot(L - 1, q, 2 * p + 1, 2 * E, NL), role) || !live;
+    quad_add_skip(a, ae, b, be, role);
+    if (q == 0) {  // rho + sigma_2p+1
+      be = quad_get(b, sm, S, fold_slot(L - 1, 1, 2 * p + 1, 2 * E, NL), role) || !live;
+    } else {  // sigma and tau doubled; ups added once
+      copy8(b, a);
+      be = ae || q == 3;
+    }
+    quad_add_skip(a, ae, b, be, role);
+    __syncwarp();
+    if (live && !(L == 1 && q == 0)) quad_put(sm, S, fold_slot(L, q, p, E, NL), a, ae, role);
+  }
+  __syncthreads();
+}
+
+extern "C" __global__ void __launch_bounds__(kFinishThreads)
 reduce_finish_kernel(const int32_t* __restrict__ T, const int32_t* __restrict__ U,
                      int32_t* __restrict__ out_plain, int32_t* __restrict__ out_mont, int G,
-                     int K, int P, int doublings) {
+                     int K, int NL, int doublings) {
   extern __shared__ u32 sm[];
-  const int k = blockIdx.x, tid = threadIdx.x;
-  const int32_t* src = (tid & 1) ? U : T;
-  const size_t stride = (size_t)K * G;
-  Pt tot, wsum;
-  tree_sums(
-      tot, wsum,
-      [&](Pt& p, int g) {
-        if (g < G) load_pt(p, src, stride, (size_t)k * G + g);
-        else set_identity(p);
-      },
-      G, P, sm);
-  // Thread 0 holds sum_g g * T_g in wsum; thread 1 holds sum_g U_g in tot.
-  sm_put(sm, blockDim.x, tid, tot);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int M = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int k = blockIdx.x / M, S = 3 * NL, QB = blockDim.x >> 2;
+  const int quad = threadIdx.x >> 2, role = threadIdx.x & 3;
+  // Quads 0 .. NL - 1 walk T for lanes 0 .. NL - 1, the next NL walk U; a
+  // block of one warp may hold quads beyond them.
+  const bool over_t = quad < NL, own = quad < 2 * NL;
+  const int lane = over_t ? quad : quad - NL;
+  const int N = M * NL, n = rank * NL + lane, I = (G + N - 1) / N;
+  const size_t stride = (size_t)K * G, at = (size_t)k * G + (size_t)16 * role * stride;
+  const int32_t* src = over_t ? T : U;
+  // run: s over T, u over U; r over T only.
+  u32 run[8] = {}, r[8] = {}, x[8] = {};
+  bool run_e = true, r_e = true;
+#pragma unroll 1
+  for (int i = I - 1; i >= 0; i--) {
+    const int g = i * N + n;
+    const bool valid = own && g < G;
+    if (!__any_sync(kFull, valid)) continue;
+    if (valid) load_fp(x, src, stride, at + g);
+    quad_add_skip(run, run_e, x, !valid, role);
+    if (i >= 1) quad_add_skip(r, r_e, run, run_e || !valid || !over_t, role);
+  }
+  if (over_t) {
+    quad_put(sm, S, lane, run, run_e, role);
+    quad_put(sm, S, NL + lane, r, r_e, role);
+  } else if (own) {
+    quad_put(sm, S, 2 * NL + lane, run, run_e, role);
+  }
   __syncthreads();
-  if (tid != 0) return;
-  sm_get(tot, sm, blockDim.x, 1);
+  int L = 0;
+  for (int E = NL >> 1; E >= 1; E >>= 1) fold_level(sm, NL, ++L, E, quad, QB, role);
+  if (M > 1) {
+    cluster.sync();  // every block's element is in its shared memory
+    if (rank == 0 && quad < 4 * M) {  // quad j copies sum j / M of block j % M
+      const int q = quad / M, b = quad % M;
+      const u32* src = cluster.map_shared_rank(sm, b);
+      const int from = fold_slot(L, q, 0, 1, NL), to = fold_slot(L + 1, q, b, M, NL);
+#pragma unroll
+      for (int i = 0; i < 8; i++) sm[(8 * role + i) * S + to] = src[(8 * role + i) * S + from];
+    }
+    cluster.sync();  // the copies are made: the other blocks may leave
+    if (rank != 0) return;
+    L++;
+    for (int E = M >> 1; E >= 1; E >>= 1) fold_level(sm, NL, ++L, E, quad, QB, role);
+  }
+  if (threadIdx.x >= 32) return;
+  // The tail in warp 0, whose quads all read element 0: W = 2^d (rho + tau) + ups.
+  u32 w[8], v[8];
+  bool we = quad_get(w, sm, S, fold_slot(L, 0, 0, 1, NL), role);
+  bool ve = quad_get(v, sm, S, fold_slot(L, 2, 0, 1, NL), role);
+  quad_add_skip(w, we, v, ve, role);  // sum_g g * T_g
+  if (!we) {
 #pragma unroll 1
-  for (int i = 0; i < doublings; i++) point_double(wsum, wsum);
-  unified_add(wsum, wsum, tot);
-  store_pt(out_mont, (size_t)K, k, wsum);
+    for (int i = 0; i < doublings; i++) quad_double(w, w, role);
+  }
+  ve = quad_get(v, sm, S, fold_slot(L, 3, 0, 1, NL), role);  // sum_g U_g
+  quad_add_skip(w, we, v, ve, role);
+  if (quad != 0) return;
+  store_fp(out_mont + (size_t)16 * role * K, (size_t)K, k, w);
   const u32 one[8] = {1u, 0u, 0u, 0u, 0u, 0u, 0u, 0u};
-  mont_mul(wsum.x, wsum.x, one);  // from_mont
-  mont_mul(wsum.y, wsum.y, one);
-  mont_mul(wsum.t, wsum.t, one);
-  mont_mul(wsum.z, wsum.z, one);
-  store_pt(out_plain, (size_t)K, k, wsum);
+  mont_mul(w, w, one);  // from_mont
+  store_fp(out_plain + (size_t)16 * role * K, (size_t)K, k, w);
 }
 
 // ---------------------------------------------------------------------------
-// finish_affine. Replaces the XLA tail of the JAX package's
-// _finish_affine_impl (engines/tpu_engine.py): the z inverse by Fermat
-// (field_ops.finv_mont, one lax.scan over the bits of p - 2), x * z^-1 and
-// y * z^-1, and from_mont. Input: the Montgomery window sums [4][16][K], as
-// reduce_finish writes them; output: the plain affine (x, y) [2][16][K].
-// One thread a window (K is about 20): the inverse is one dependent chain
-// of 253 squarings and 133 products, left to right from Montgomery 1, so
-// it maps z = 0 to 0 as finv_mont does. Every residue is reduced, so the
-// digits equal the plain version's.
-// ---------------------------------------------------------------------------
-// p - 2 as 32-bit limbs, least significant first: 253 bits, 133 of them set.
-static __constant__ u32 P_MINUS_2_L[8] = {0xffffffffu, 0x0a117fffu, 0xd0000001u, 0x59aa76feu,
-                                          0x5c37b001u, 0x60b44d1eu, 0x9a2ca556u, 0x12ab655eu};
-constexpr int kPMinus2Bits = 253;
-
-extern "C" __global__ void __launch_bounds__(kThreads)
-finish_affine_kernel(const int32_t* __restrict__ mont, int32_t* __restrict__ out, int K) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= K) return;
-  const size_t stride = (size_t)K;
-  u32 z[8], zi[8], v[8];
-  load_fp(z, mont, stride, 48 * stride + k);
-  load_const(zi, R_L);  // Montgomery 1
-#pragma unroll 1
-  for (int i = kPMinus2Bits - 1; i >= 0; i--) {
-    mont_mul(zi, zi, zi);
-    if ((P_MINUS_2_L[i >> 5] >> (i & 31)) & 1u) mont_mul(zi, zi, z);
-  }
-  const u32 one[8] = {1u, 0u, 0u, 0u, 0u, 0u, 0u, 0u};
-#pragma unroll 1
-  for (int c = 0; c < 2; c++) {  // x, then y
-    load_fp(v, mont, stride, 16 * c * stride + k);
-    mont_mul(v, v, zi);
-    mont_mul(v, v, one);  // from_mont
-    store_fp(out, stride, 16 * c * stride + k, v);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// finish_affine_divsteps. The same function as finish_affine, digit for
-// digit, on the device_affine path; the z inverse by Bernstein-Yang
+// finish_affine_divsteps. Replaces the XLA tail of the JAX package's
+// _finish_affine_impl (engines/tpu_engine.py): the z inverse (there
+// field_ops.finv_mont, a Fermat chain of 386 dependent products), x * z^-1
+// and y * z^-1, and from_mont. Input: the Montgomery window sums [4][16][K],
+// as reduce_finish writes them; output: the plain affine (x, y) [2][16][K],
+// z = 0 mapped to (0, 0) as finv_mont maps it; every residue reduced, so
+// the digits equal the plain version's. The z inverse by Bernstein-Yang
 // divsteps ("Fast constant-time gcd computation and modular inversion",
-// CHES 2019) in the signed 30-bit form of libsecp256k1's modinv32, in place
-// of the Fermat chain of 386 dependent products.
+// CHES 2019) in the signed 30-bit form of libsecp256k1's modinv32.
 //
 // One thread a window. f, g, d and e are 9 signed limbs of 30 bits in
 // registers, from f = p, g = z, d = 0, e = 1, so that d * z == f and
@@ -885,20 +1096,31 @@ extern "C" int launch_grouped_running_sum(const void* s, void* T, void* U, int G
 }
 
 extern "C" int launch_reduce_finish(const void* T, const void* U, void* out_plain,
-                                    void* out_mont, int G, int K, int P, int doublings,
+                                    void* out_mont, int G, int K, int M, int NL, int doublings,
                                     int device, void* stream) {
   if (const int err = use_device(device)) return err;
-  reduce_finish_kernel<<<K, 2 * P, 256 * P, (cudaStream_t)stream>>>(
-      (const int32_t*)T, (const int32_t*)U, (int32_t*)out_plain, (int32_t*)out_mont, G, K, P,
-      doublings);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int launch_finish_affine(const void* mont, void* out, int K, int device, void* stream) {
-  if (const int err = use_device(device)) return err;
-  finish_affine_kernel<<<blocks(K, kThreads), kThreads, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)mont, (int32_t*)out, K);
-  return (int)cudaGetLastError();
+  // A cluster of M blocks a window (a power of two, at most 8), two quads a
+  // lane, NL lanes a block (a power of two, at most 32); block 0 gathers
+  // 4 M sums into NL slots with one quad each, so 4 M <= NL where M > 1.
+  if (M < 1 || M > 8 || (M & (M - 1)) || NL < 1 || NL > 32 || (NL & (NL - 1)) ||
+      (M > 1 && 4 * M > NL))
+    return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(K * M);
+  cfg.blockDim = dim3(NL < 4 ? 32 : 8 * NL);
+  cfg.dynamicSmemBytes = (size_t)3 * NL * 32 * sizeof(u32);
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = M;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, reduce_finish_kernel, (const int32_t*)T,
+                                             (const int32_t*)U, (int32_t*)out_plain,
+                                             (int32_t*)out_mont, G, K, NL, doublings);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 extern "C" int launch_finish_affine_divsteps(const void* mont, void* out, int K, int device,

@@ -1,4 +1,4 @@
-"""Wrappers, plain versions and launch counts of the fifteen kernels.
+"""Wrappers, plain versions and launch counts of the fourteen kernels.
 
 Each wrapper takes int32 tensors holding u32 bits, at the JAX package's
 layouts (`ops/pallas/padd_kernels.py`). A tensor on the CPU goes to the
@@ -29,14 +29,15 @@ KERNELS = (
     "to_niels_xy", "accumulate_scan", "padd_masked", "padd", "grouped_running_sum",
     "to_niels", "accumulate_scan_mma", "accumulate_scan_gather", "reduce_finish",
     "lane_scan", "assemble_buckets", "to_niels_xy_rows", "accumulate_scan_gather_mma",
-    "finish_affine", "finish_affine_divsteps",
+    "finish_affine_divsteps",
 )
 launches: dict[str, int] = {name: 0 for name in KERNELS}
 
 SENTINEL = 0xFFFFFFFF  # initial scan id: no masked bucket id equals it
 CARD_THREADS = 132 * 256  # threads that about fill the card with the tree kernels
 GROUP_THREADS = 256  # most threads a lane of grouped_running_sum
-FINISH_THREADS = 128  # most threads a lane of reduce_finish (two lanes a block)
+FINISH_LANES = 32  # most lanes a block of reduce_finish (two quads of four threads each)
+FINISH_CLUSTER = 8  # most blocks a window of reduce_finish: a cluster, the portable maximum
 
 
 def reset_launch_counts() -> None:
@@ -454,12 +455,13 @@ def assemble_buckets(partial: torch.Tensor, carries: torch.Tensor, hist: torch.T
 
 
 # ---------------------------------------------------------------------------
-# 5 and 9. The tree reduction: grouped_running_sum and reduce_finish.
-#    Extended coordinates are not canonical: the same point has many digit
-#    forms, and the order of the adds picks one. `_tree_sums` adds in the
-#    order of the kernels' `tree_sums` (csrc/padd_kernels.cu), so kernel and
-#    plain version agree digit for digit; against a serial chain of adds they
-#    agree as points.
+# 5 and 9. The bucket reduction after the bucket sums: grouped_running_sum
+#    and reduce_finish. Extended coordinates are not canonical: the same
+#    point has many digit forms, and the order of the adds picks one.
+#    `_tree_sums` adds in the order of `tree_sums` (csrc/padd_kernels.cu) and
+#    `_fold_sums` in that of `reduce_finish_kernel`, so kernel and plain
+#    version agree digit for digit; against a serial chain of adds they agree
+#    as points.
 # ---------------------------------------------------------------------------
 def _group_plan(n: int, lanes: int, max_threads: int) -> tuple[int, int]:
     """(P, q): P threads share a lane of n elements, q = ceil(n / P) each.
@@ -534,14 +536,65 @@ def grouped_running_sum(s: torch.Tensor):
     return T, U
 
 
-def reduce_finish_plain(T: torch.Tensor, U: torch.Tensor, n_windows: int, doublings: int):
+def _finish_plan(G: int) -> tuple[int, int]:
+    """(M, NL): `reduce_finish` reduces a window of G groups on a cluster of
+    M blocks of NL lanes (a lane is two quads of four threads: 8 NL threads
+    a block), N = M * NL lanes, the largest power of two at most G and
+    FINISH_CLUSTER * FINISH_LANES."""
+    N = min(1 << (G.bit_length() - 1), FINISH_CLUSTER * FINISH_LANES)
+    NL = min(N, FINISH_LANES)
+    return N // NL, NL
+
+
+def _skip_add(a: torch.Tensor, a_empty: torch.Tensor, b: torch.Tensor, b_empty: torch.Tensor):
+    """The kernel's add with empty operands (the identity, never added):
+    a + b where both are points, else the one that is not empty. Points
+    [4, 16, K, E] int64, masks [K, E] bool; returns (sum, mask)."""
+    return torch.where(a_empty, b, torch.where(b_empty, a, _add_st(a, b))), a_empty & b_empty
+
+
+def _fold_sums(T: torch.Tensor, U: torch.Tensor, n_windows: int, N: int):
+    """(sum_g g * T_g, sum_g U_g) of each window of T, U [4, 16, K * G], as
+    ([4, 16, K] int64, [K] empty mask) each, adding in the order of
+    `reduce_finish_kernel` with N lanes a window: lane n walks the groups
+    g = i * N + n from the top i down (s = sum T_g, r += run where i >= 1,
+    u = sum U_g), then log2 N levels fold pairs (2p, 2p + 1) of the sums
+    rho, sigma, tau, ups (rho' = (rho + rho') + sigma', sigma' = 2 (sigma +
+    sigma'), tau' = 2 (tau + tau'), ups' = ups + ups'; 2x is x + x), from
+    rho empty, sigma = s, tau = r, ups = u; sum_g g * T_g = rho + tau."""
     K, G = n_windows, T.shape[-1] // n_windows
-    P = _group_plan(G, 2 * K, FINISH_THREADS)[0]
-    by_group = lambda t: t.reshape(4, 16, K, G).permute(3, 0, 1, 2)  # [G, 4, 16, K]
-    v = PointVec.from_stacked(_tree_sums(by_group(T), P)[1])  # sum_g g * T_g
+    I, dev = -(-G // N), T.device
+    pad = curve_ops.identity((K, I * N - G), dev).stacked()
+    lanes = lambda x: torch.cat([limbs.as_i64(x).reshape(4, 16, K, G), pad], dim=-1).reshape(4, 16, K, I, N)
+    t, u = lanes(T), lanes(U)
+    skip = (torch.arange(I * N, device=dev) >= G).reshape(I, 1, N).expand(I, K, N)
+    empty = torch.ones((K, N), dtype=torch.bool, device=dev)
+    run = r = us = curve_ops.identity((K, N), dev).stacked()
+    run_e = r_e = us_e = empty
+    for i in range(I - 1, -1, -1):
+        run, run_e = _skip_add(run, run_e, t[:, :, :, i], skip[i])
+        if i >= 1:
+            r, r_e = _skip_add(r, r_e, run, run_e | skip[i])
+        us, us_e = _skip_add(us, us_e, u[:, :, :, i], skip[i])
+    rho, sigma, tau, ups = (run, empty), (run, run_e), (r, r_e), (us, us_e)
+    lo = lambda s: (s[0][..., 0::2], s[1][:, 0::2])
+    hi = lambda s: (s[0][..., 1::2], s[1][:, 1::2])
+    dbl = lambda s: _skip_add(*s, *s)
+    while sigma[0].shape[-1] > 1:
+        rho = _skip_add(*_skip_add(*lo(rho), *hi(rho)), *hi(sigma))
+        sigma, tau, ups = (dbl(_skip_add(*lo(sigma), *hi(sigma))), dbl(_skip_add(*lo(tau), *hi(tau))),
+                           _skip_add(*lo(ups), *hi(ups)))
+    weighted, w_empty = _skip_add(*rho, *tau)
+    return (weighted[..., 0], w_empty[:, 0]), (ups[0][..., 0], ups[1][:, 0])
+
+
+def reduce_finish_plain(T: torch.Tensor, U: torch.Tensor, n_windows: int, doublings: int):
+    M, NL = _finish_plan(T.shape[-1] // n_windows)
+    (weighted, w_empty), (total, _) = _fold_sums(T, U, n_windows, M * NL)
+    v = PointVec.from_stacked(weighted)
     for _ in range(doublings):
         v = curve_ops.double(v)
-    mont = curve_ops.add(v, PointVec.from_stacked(_tree_sums(by_group(U), P)[0])).stacked()
+    mont = torch.where(w_empty, total, curve_ops.add(v, PointVec.from_stacked(total)).stacked())
     plain = torch.stack([field_ops.from_mont(mont[i]) for i in range(4)])
     return plain.to(torch.int32), mont.to(torch.int32)
 
@@ -562,16 +615,18 @@ def reduce_finish(T: torch.Tensor, U: torch.Tensor, n_windows: int, doublings: i
     mont = torch.empty_like(plain)
     _launch(
         "reduce_finish", "launch_reduce_finish", T.device, T.data_ptr(), U.data_ptr(),
-        plain.data_ptr(), mont.data_ptr(), W // K, K, _group_plan(W // K, 2 * K, FINISH_THREADS)[0],
-        doublings,
+        plain.data_ptr(), mont.data_ptr(), W // K, K, *_finish_plan(W // K), doublings,
     )
     return plain, mont
 
 
 # ---------------------------------------------------------------------------
-# 14. finish_affine: Montgomery window sums [4, 16, K] (as `reduce_finish`
-#    writes its `mont` output) -> plain affine (x, y) [2, 16, K]: the XLA
-#    tail of the JAX package's `_finish_affine_impl`, z = 0 mapped to 0.
+# 14. finish_affine_divsteps: Montgomery window sums [4, 16, K] (as
+#    `reduce_finish` writes its `mont` output) -> plain affine (x, y)
+#    [2, 16, K]: the XLA tail of the JAX package's `_finish_affine_impl`,
+#    z = 0 mapped to 0, with the z inverse by divsteps (safegcd) in the
+#    kernel; the one the `device_affine` finish launches. Its plain version
+#    is `finish_affine_plain`.
 # ---------------------------------------------------------------------------
 def finish_affine_plain(mont: torch.Tensor) -> torch.Tensor:
     """`field_ops.finv_mont` of z, two products and `from_mont`."""
@@ -580,29 +635,12 @@ def finish_affine_plain(mont: torch.Tensor) -> torch.Tensor:
     return torch.stack([field_ops.from_mont(field_ops.mont_mul(m[c], zi)) for c in (0, 1)]).to(torch.int32)
 
 
-def _finish_affine(name: str, mont: torch.Tensor) -> torch.Tensor:
+def finish_affine_divsteps(mont: torch.Tensor) -> torch.Tensor:
     K = mont.shape[-1]
-    _shape(name, mont, (4, 16, K))
-    if not _on_card(name, mont):
+    _shape("finish_affine_divsteps", mont, (4, 16, K))
+    if not _on_card("finish_affine_divsteps", mont):
         return finish_affine_plain(mont)
     out = torch.empty((2, 16, K), dtype=torch.int32, device=mont.device)
-    _launch(name, "launch_" + name, mont.device, mont.data_ptr(), out.data_ptr(), K)
+    _launch("finish_affine_divsteps", "launch_finish_affine_divsteps", mont.device, mont.data_ptr(),
+            out.data_ptr(), K)
     return out
-
-
-def finish_affine(mont: torch.Tensor) -> torch.Tensor:
-    """The z inverse by the Fermat chain in the kernel (on no path)."""
-    return _finish_affine("finish_affine", mont)
-
-
-# ---------------------------------------------------------------------------
-# 15. finish_affine_divsteps: the same function as `finish_affine`, digit
-#    for digit, with the z inverse by divsteps (safegcd) in the kernel; the
-#    one the `device_affine` finish launches. Its plain version is
-#    `finish_affine_plain`: the same function.
-# ---------------------------------------------------------------------------
-finish_affine_divsteps_plain = finish_affine_plain
-
-
-def finish_affine_divsteps(mont: torch.Tensor) -> torch.Tensor:
-    return _finish_affine("finish_affine_divsteps", mont)
