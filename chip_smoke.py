@@ -1750,7 +1750,7 @@ def main() -> int:
     trace.reset()
     res = compute_msm(pts, sc, config=cfg, device=dev)
     check(as_xy(res) == PINNED[20], "traced wire call differs from PINNED")
-    print("trace summary (warm wire 2^20; host clock, 'device msm (wire)' is the queueing): "
+    print("trace summary (warm wire 2^20; host clock, 'queue stages' is the queueing, 'fetch' the wait): "
           + "; ".join(" ".join(line.split()) for line in trace.summary().splitlines()))
 
     # 4s. device_affine: the wire call with the affine finish on the card, one

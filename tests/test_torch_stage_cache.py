@@ -7,8 +7,9 @@
 (b) On the CPU `stage_call` runs the stage as it is.
 (c) The cache's bookkeeping, with a stub in place of `torch.cuda.CUDAGraph`
     and the CPU standing in for the card: keys, replays, launch counts,
-    the memory limit, `eager()`, a capture that fails, `prepare`, and the
-    sharded stages' captures before their collective.
+    the memory limit, `eager()`, a capture that fails, `prepare`, the
+    sharded stages' captures before their collective, and each call's
+    span "stage <name>: <outcome>" with the eager runs' count.
 
 The graphs themselves run on the card: tests/test_torch_gpu.py.
 """
@@ -25,7 +26,7 @@ from webgpu_msm_tpu.engines import tpu_engine as te
 from webgpu_msm_tpu_torch import MSMConfig
 from webgpu_msm_tpu_torch.engines import gpu_engine
 from webgpu_msm_tpu_torch.ops.kernels import padd_kernels as pk
-from webgpu_msm_tpu_torch.utils import cache, convert, fixtures
+from webgpu_msm_tpu_torch.utils import cache, convert, fixtures, trace
 
 from torch_threads import one_torch_thread  # noqa: F401  (one PyTorch CPU thread)
 
@@ -420,3 +421,71 @@ def test_sharded_stages_stay_eager_after_the_all_gather_while_memory_is_short(st
         events.clear()
         sums(mode)
         assert events.count("capture") == 3 and after_the_gather(events) == []
+
+
+# ---------------------------------------------------------------------------
+# the stage spans' outcomes and the eager count
+# ---------------------------------------------------------------------------
+
+
+def stage_spans(c, calls):
+    """The labels of the stage spans that `calls` (each a function of the
+    cache) record, and the cache's eager count after them."""
+    trace.reset()
+    for call in calls:
+        call(c)
+    return [label for label, _ in trace.records()], c.stats()["eager"]
+
+
+def test_stage_spans_name_the_stage_and_its_outcome(stub_card):
+    x = torch.arange(4, dtype=torch.int32)
+    c = cache.StageCache()
+    fn = counting_stage([])
+    spans, eager = stage_spans(c, [lambda c: c.call("s", fn, x, x)] * 3)
+    assert spans == ["stage s: capture", "stage s: replay", "stage s: replay"] and eager == 0
+    assert (c.captures, c.replays) == (1, 2)
+
+
+def eager_by_eager(c, stage, x, card):
+    with c.eager():
+        c.call("s", stage, x, x)
+
+
+def eager_too_large(c, stage, x, card):
+    card["limit"] = 2 * PER_GRAPH - 1
+    c.call("s", stage, x, x)  # captured, then dropped: too large
+    c.call("s", stage, x, x)
+
+
+def eager_short_of_memory(c, stage, x, card):
+    card["free"] = card["limit"] - 1
+    c.call("s", stage, x, x)
+
+
+def eager_unprepared(c, stage, x, card):
+    free, card["free"] = card["free"], card["limit"] - 1
+    c.prepare("s", stage, x, x)  # short of memory: the key is left uncaptured
+    card["free"] = free
+    c.call("s", stage, x, x)
+
+
+@pytest.mark.parametrize("case, want", [
+    (eager_by_eager, ["stage s: eager"]),
+    (eager_too_large, ["stage s: capture", "stage s: eager"]),
+    (eager_short_of_memory, ["stage s: eager"]),
+    (eager_unprepared, ["stage s: eager"]),
+], ids=["eager_mode", "too_large", "short_of_memory", "unprepared"])
+def test_a_stage_run_without_a_graph_is_an_eager_span_and_counted(stub_card, case, want):
+    x = torch.arange(4, dtype=torch.int32)
+    c = cache.StageCache()
+    spans, eager = stage_spans(c, [lambda c: case(c, counting_stage([]), x, stub_card)])
+    assert spans == want and eager == want.count("stage s: eager") and c.replays == 0
+
+
+def test_a_stage_on_the_cpu_is_an_eager_span_and_not_counted():
+    """On the CPU there are no graphs: the span says `eager`, and the
+    cache's counts, which are a card's, stay as they were."""
+    c = cache.StageCache()
+    x = torch.arange(4, dtype=torch.int32)
+    spans, eager = stage_spans(c, [lambda c: c.call("cpu_stage", lambda a: a + 1, x)])
+    assert spans == ["stage cpu_stage: eager"] and eager == 0 and c.stats()["captures"] == 0

@@ -3,6 +3,7 @@
 `bench.py`). No JAX computation runs here: the JAX modules give inputs and
 formats only.
 """
+import contextlib
 import csv
 import importlib.util
 import logging
@@ -15,7 +16,8 @@ import torch
 from webgpu_msm_tpu import benchmark as jbenchmark
 from webgpu_msm_tpu.utils import trace as jtrace
 
-from webgpu_msm_tpu_torch import MSMConfig, benchmark, compute_msm
+from webgpu_msm_tpu_torch import MSMConfig, MSMPlan, benchmark, compute_msm
+from webgpu_msm_tpu_torch.engines import gpu_engine
 from webgpu_msm_tpu_torch.utils import trace
 
 from torch_threads import one_torch_thread  # noqa: F401  (one PyTorch CPU thread)
@@ -74,18 +76,138 @@ def test_profiler_trace_writes_a_chrome_trace(tmp_path):
     assert (tmp_path / "trace.json").stat().st_size > 0
 
 
-def test_cpu_calls_record_the_jax_phases(clean_trace):
-    """A wire call records the JAX engine's two wire phases, a list call its
-    two planes phases."""
+CALL_SPANS = {  # the program's spans of one call at n 16, w 8, one batch of 4 x 4, in the order they end
+    "wire": ["check inputs (wire)", "check inputs (wire)", "slice/pad inputs (wire)",
+             "stage wire_batch_w8_c4x4_s1: eager", "stage finish_w8_s1: eager", "queue stages",
+             "fetch", "combine windows"],
+    "planes": ["convert inputs", "stage batch_planes_w8_c4x4_s1: eager", "stage finish_w8_s1: eager",
+               "device msm", "combine windows"],
+    "plan": ["check inputs (wire)", "check inputs (wire)", "stage scalars (plan)",
+             "stage fixed_batch_w8_c4x4_s1: eager", "stage finish_w8_s1: eager", "queue stages",
+             "fetch", "combine windows"],
+    "batch": (["check inputs (wire)"] * 2
+              + ["check inputs (wire)", "stage scalars (plan)", "stage fixed_batch_w8_c4x4_s1: eager",
+                 "stage finish_w8_s1: eager", "queue stages"] * 2
+              + ["fetch", "combine windows"] * 2),
+}
+CFG = MSMConfig(window_size=8, n_chunks=4, chunk_len=4)
+
+
+def call_of(path):
+    """A CPU call of `path` at n 16 and its expected results; a plan is
+    built first, outside the call."""
     pw, sw, expected = benchmark._wire_case(16)
-    points, scalars, _ = benchmark._case(16)
-    cfg = MSMConfig(window_size=8, n_chunks=4, chunk_len=4)
-    got = compute_msm(pw, sw, config=cfg, device="cpu")
-    assert [label for label, _ in trace.records()] == ["slice/pad inputs (wire)", "device msm (wire)"]
+    if path == "wire":
+        return lambda: [compute_msm(pw, sw, config=CFG, device="cpu")], [expected]
+    if path == "planes":
+        points, scalars, _ = benchmark._case(16)
+        return lambda: [compute_msm(points, scalars, config=CFG, device="cpu")], [expected]
+    plan = MSMPlan(pw, config=CFG, device="cpu")
+    if path == "plan":
+        return lambda: [plan.msm(sw)], [expected]
+    return lambda: plan.msm_batch([sw, sw]), [expected] * 2
+
+
+@pytest.mark.parametrize("path", sorted(CALL_SPANS))
+def test_cpu_calls_record_the_jax_phases(clean_trace, path):
+    """A wire call records the JAX engine's wire staging phase and the
+    port's spans around it, a list call the JAX planes phases, a plan job
+    and a two-job `msm_batch` theirs for each job (the fetches after every
+    job is queued)."""
+    call, expected = call_of(path)
     trace.reset()
-    assert compute_msm(points, scalars, config=cfg, device="cpu") == got
-    assert [label for label, _ in trace.records()] == ["convert inputs", "device msm"]
-    assert (got.x, got.y) == expected
+    got = call()
+    assert [(r.x, r.y) for r in got] == expected
+    assert [label for label, _ in trace.records()] == CALL_SPANS[path]
+
+
+def wrap_phase_as_the_benchmark_does(monkeypatch):
+    """`trace.phase` wrapped in a profiler range of its own, as
+    `msm_bench/harness.py` wraps it in traced runs."""
+    original = trace.phase
+
+    @contextlib.contextmanager
+    def phase(label):
+        with torch.profiler.record_function(trace.RANGE_PREFIX + label), original(label):
+            yield
+
+    monkeypatch.setattr(trace, "phase", phase)
+
+
+def identity_stages(monkeypatch):
+    """The wire path's two stages made trivial (the carry passed on, the
+    identity as every window sum), so that a profiled call records a few
+    ops rather than the plain kernels' many: the call's result is then the
+    identity."""
+    def finish(carry):
+        sums = torch.zeros((4, 16, carry.shape[2]), dtype=torch.int64)
+        sums[1, 0] = sums[3, 0] = 1  # y = z = 1
+        return sums
+
+    monkeypatch.setattr(gpu_engine, "_wire_batch_impl", lambda xy, sc, carry, **static: carry)
+    monkeypatch.setattr(gpu_engine, "_finish_impl", finish)
+
+
+@pytest.mark.parametrize("wrapped", [False, True], ids=["plain", "phase_wrapped"])
+def test_program_spans_are_profiler_ranges_once(clean_trace, wrapped, monkeypatch):
+    """Under `torch.profiler` each span of a wire call is one range named
+    "phase: " + its label, also with `trace.phase` wrapped in a range of
+    its own; no range of a label lies inside another of the same label."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if wrapped:
+        wrap_phase_as_the_benchmark_does(monkeypatch)
+    identity_stages(monkeypatch)
+    call, _ = call_of("wire")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        assert [(r.x, r.y) for r in call()] == [(0, 1)]
+    ranges = [e for e in prof.events() if e.name.startswith(trace.RANGE_PREFIX)]
+    want = [trace.RANGE_PREFIX + label for label, _ in trace.records()]
+    assert sorted(e.name for e in ranges) == sorted(want) and len(want) == len(CALL_SPANS["wire"])
+    for a in ranges:
+        assert not any(b is not a and b.name == a.name and b.time_range.start <= a.time_range.start
+                       and a.time_range.end <= b.time_range.end for b in ranges), a.name
+
+
+def test_a_call_makes_no_range_with_no_profiler_on(clean_trace, monkeypatch):
+    made = []
+
+    def record_function(*args, **kwargs):
+        made.append(args)
+        return contextlib.nullcontext()
+
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", record_function)
+    assert not torch.autograd.profiler._is_profiler_enabled
+    calls = [call_of(path) for path in ("wire", "plan")]
+    trace.reset()
+    for call, expected in calls:
+        assert [(r.x, r.y) for r in call()] == expected
+    assert made == [] and len(trace.records()) == len(CALL_SPANS["wire"]) + len(CALL_SPANS["plan"])
+
+
+def test_phase_is_the_host_clock_alone_and_span_adds_a_range(clean_trace):
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with trace.phase("host clock"):
+            pass
+        with trace.span("ranged"):
+            pass
+    names = [e.name for e in prof.events()]
+    assert names.count("phase: ranged") == 1 and "phase: host clock" not in names
+    assert [label for label, _ in trace.records()] == ["host clock", "ranged"]
+
+
+def test_records_keep_the_newest_and_count_what_was_dropped(clean_trace, monkeypatch):
+    monkeypatch.setattr(trace, "MAX_RECORDS", 4)
+    for i in range(11):
+        with trace.span(f"s{i}"):
+            pass
+    assert [label for label, _ in trace.records()] == ["s7", "s8", "s9", "s10"]
+    assert trace.dropped() == 7 and len(trace._records) <= 2 * trace.MAX_RECORDS
+    assert trace.summary().splitlines()[0].split()[0] == "s7"
+    trace.reset()
+    assert trace.records() == [] and trace.dropped() == 0
 
 
 def test_benchmark_cases_match_jax():

@@ -36,7 +36,7 @@ from .engines import baseline_engine, cpu_engine, gpu_engine, hybrid_engine, nai
 from .oracle import curve
 from .oracle import msm as omsm
 from .oracle.curve import ExtPoint
-from .utils import convert
+from .utils import convert, trace
 
 
 @dataclass(frozen=True)
@@ -83,12 +83,13 @@ def _wire_inputs(points: np.ndarray, scalars: np.ndarray, rows: Optional[np.ndar
     path any error is a real fault. Integer arrays wider than u32 are
     range-checked: a word of 2^32 or more raises instead of being cut.
     `rows`: the point array's rows, already checked."""
-    if scalars.size != points.size // 4:  # n*8 scalar words against n*32 point words
-        return None
-    rows = _wire_point_rows(points) if rows is None else rows
-    if rows is None:
-        return None
-    return rows, convert.as_u32_array(scalars, "wire scalars").reshape(-1, 8)
+    with trace.span("check inputs (wire)"):
+        if scalars.size != points.size // 4:  # n*8 scalar words against n*32 point words
+            return None
+        rows = _wire_point_rows(points) if rows is None else rows
+        if rows is None:
+            return None
+        return rows, convert.as_u32_array(scalars, "wire scalars").reshape(-1, 8)
 
 
 def _wire_fast_path_ok(points: np.ndarray, scalars: np.ndarray) -> bool:
@@ -276,7 +277,8 @@ class MSMPlan:
             self.n = (points.reshape(-1, 32).shape[0] if isinstance(points, np.ndarray)
                       else len(points))
             return
-        rows = _wire_point_rows(points) if isinstance(points, np.ndarray) else None
+        with trace.span("check inputs (wire)"):
+            rows = _wire_point_rows(points) if isinstance(points, np.ndarray) else None
         if rows is None:
             # one marshal on the host to wire rows (z == 1), then the same plan
             rows = _points_to_wire_rows(_normalize_points(points))
@@ -285,9 +287,10 @@ class MSMPlan:
 
     @staticmethod
     def _scalars_wire(scalars: Any) -> np.ndarray:
-        if isinstance(scalars, np.ndarray):
-            return convert.as_u32_array(scalars, "wire scalars").reshape(-1, 8)
-        return convert.bigints_to_u32_be([int(s) for s in scalars])
+        with trace.span("check inputs (wire)"):
+            if isinstance(scalars, np.ndarray):
+                return convert.as_u32_array(scalars, "wire scalars").reshape(-1, 8)
+            return convert.bigints_to_u32_be([int(s) for s in scalars])
 
     def _per_call(self, scalars: Any) -> AffinePoint:
         return compute_msm(self._points, scalars, config=self.config, device=self.device,

@@ -208,8 +208,10 @@ def window_sums_to_points(wsums: np.ndarray) -> list[ExtPoint]:
 def _fetch_affine(out: torch.Tensor, w: int) -> tuple[int, int]:
     """Fetch one job's window sums (this waits for the device), combine the
     windows on the host and return the affine result."""
-    wsums = window_sums_to_points(out.cpu().numpy())
-    return ocurve.to_affine(combine_windows(wsums, w))
+    with trace.span("fetch"):
+        wsums = out.cpu().numpy()
+    with trace.span("combine windows"):
+        return ocurve.to_affine(combine_windows(window_sums_to_points(wsums), w))
 
 
 def _padded_plan(config: MSMConfig, n: int) -> tuple[int, int, int, int]:
@@ -317,10 +319,10 @@ def msm_window_sums_host(points: Sequence[ExtPoint], scalars: Sequence[int],
     Traced as the JAX engine's two phases; "device msm" ends with the
     fetch, so it holds the device's time."""
     w, C, L, pad_to = _padded_plan(config, len(points))
-    with trace.phase("convert inputs"):
+    with trace.span("convert inputs"):
         pts = marshal_points(points, pad_to)
         sc = marshal_scalars(scalars, pad_to)
-    with trace.phase("device msm"):
+    with trace.span("device msm"):
         out = _device_msm(
             pts, sc, window_size=w, n_chunks=C, chunk_len=L, signed_digits=_signed_ok(config, sc),
             device_affine=config.device_affine, device=device,
@@ -332,7 +334,8 @@ def msm_window_sums_host(points: Sequence[ExtPoint], scalars: Sequence[int],
 def msm_affine(points: Sequence[ExtPoint], scalars: Sequence[int], config: MSMConfig,
                device: torch.device) -> tuple[int, int]:
     wsums, w = msm_window_sums_host(points, scalars, config, device)
-    return ocurve.to_affine(combine_windows(wsums, w))
+    with trace.span("combine windows"):
+        return ocurve.to_affine(combine_windows(wsums, w))
 
 
 def msm_affine_batch(jobs: Sequence[tuple[Sequence[ExtPoint], Sequence[int]]],
@@ -415,17 +418,18 @@ def _dispatch_wire(points_be: np.ndarray, scalars_be: np.ndarray, config: MSMCon
     the device pipeline; returns (window sums on the device, window size)
     without synchronizing, so a caller can queue many jobs before it
     fetches any."""
-    rows = _wire_rows(points_be, "the wire path", z_checked)
-    scalars_be = _scalar_rows(scalars_be)
-    n = rows.shape[0]
-    if scalars_be.shape[0] != n:
-        raise ValueError(f"points/scalars length mismatch: {n} vs {scalars_be.shape[0]}")
+    with trace.span("check inputs (wire)"):
+        rows = _wire_rows(points_be, "the wire path", z_checked)
+        scalars_be = _scalar_rows(scalars_be)
+        n = rows.shape[0]
+        if scalars_be.shape[0] != n:
+            raise ValueError(f"points/scalars length mismatch: {n} vs {scalars_be.shape[0]}")
     w, C, L, pad_to = _padded_plan(config, n)
-    with trace.phase("slice/pad inputs (wire)"):
+    with trace.span("slice/pad inputs (wire)"):
         xy_t = _stage_xy(rows, pad_to, device)
         sc_t = _stage_scalars(scalars_be, pad_to, device)
         signed = _signed_wire(config, scalars_be)
-    with trace.phase("device msm (wire)"):  # queued, not waited for
+    with trace.span("queue stages"):  # queued, not waited for
         out = _device_msm_wire_staged(
             xy_t, sc_t, window_size=w, n_chunks=C, chunk_len=L, signed_digits=signed,
             device_affine=config.device_affine, device=device,
@@ -499,19 +503,22 @@ class WirePlan:
     def dispatch(self, scalars_be: np.ndarray):
         """Queue one job's copies and kernels; returns (window sums on the
         device, w) without synchronizing."""
-        scalars_be = _scalar_rows(scalars_be)
-        if scalars_be.shape[0] != self.n:
-            raise ValueError(f"plan holds {self.n} bases but got {scalars_be.shape[0]} scalars")
+        with trace.span("check inputs (wire)"):
+            scalars_be = _scalar_rows(scalars_be)
+            if scalars_be.shape[0] != self.n:
+                raise ValueError(f"plan holds {self.n} bases but got {scalars_be.shape[0]} scalars")
         M = self.C * self.L
-        signed = _signed_wire(self.config, scalars_be)
-        sc_t = _stage_scalars(scalars_be, self.pad_to, self.device)
-        static = dict(window_size=self.w, n_chunks=self.C, chunk_len=self.L, signed_digits=signed)
-        bname = _batch_name("fixed_batch", self.w, self.C, self.L, signed)
-        carry = _identity_carry(self.w, signed, self.device)
-        for b, rows in enumerate(self._rows):
-            carry = _call_stage(bname, _fixed_batch_impl, static, rows, sc_t[b * M : (b + 1) * M],
-                                carry, clone=False)
-        return _call_finish(carry, self.w, signed, self.config.device_affine), self.w
+        with trace.span("stage scalars (plan)"):
+            signed = _signed_wire(self.config, scalars_be)
+            sc_t = _stage_scalars(scalars_be, self.pad_to, self.device)
+        with trace.span("queue stages"):  # queued, not waited for
+            static = dict(window_size=self.w, n_chunks=self.C, chunk_len=self.L, signed_digits=signed)
+            bname = _batch_name("fixed_batch", self.w, self.C, self.L, signed)
+            carry = _identity_carry(self.w, signed, self.device)
+            for b, rows in enumerate(self._rows):
+                carry = _call_stage(bname, _fixed_batch_impl, static, rows, sc_t[b * M : (b + 1) * M],
+                                    carry, clone=False)
+            return _call_finish(carry, self.w, signed, self.config.device_affine), self.w
 
     def msm_affine(self, scalars_be: np.ndarray) -> tuple[int, int]:
         return _fetch_affine(*self.dispatch(scalars_be))

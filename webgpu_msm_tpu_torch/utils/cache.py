@@ -60,6 +60,13 @@ are illegal while capturing, so other threads of the process (the hybrid
 engine's CPU worker, a loader pinning host memory) go on as usual, and
 their work, queued on other streams, is not recorded.
 
+Spans. Each call is a `utils/trace.span` "stage <name>: <outcome>", the
+outcome `replay`, `capture` (a first call: its eager run, then the
+capture) or `eager` (on the CPU, under `eager()`, a graph too large, a
+key `prepare` left uncaptured, a first call while the card is short of
+memory). `stats()["eager"]` counts the eager runs on a card: with
+`captures`, what a warm call should never add to.
+
 `prepare(name, fn, *args)` captures a stage's graph ahead of its first
 call, on stand-in arguments of its shapes: the multi-GPU layer's stages
 after the collective (`parallel/msm_sharded.py`). While the card is short
@@ -89,6 +96,7 @@ from typing import Callable
 import torch
 
 from ..ops.kernels import padd_kernels as pk
+from . import trace
 
 MEMORY_SHARE = 0.125  # of a card's memory: what its graphs may hold, and what must stay free to capture
 
@@ -153,8 +161,9 @@ def _capture(fn: Callable, inputs: tuple, device: torch.device):
 
 class StageCache:
     """Least recently used CUDA graphs of pipeline stages; see the module
-    docstring. `captures`, `replays`, `evictions` and `uncaptured` count
-    since the last `clear`; `peak_bytes` is the most held at once, a new
+    docstring. `captures`, `replays`, `eager_runs` (the calls on a card
+    that ran without a graph), `evictions` and `uncaptured` count since the
+    last `clear`; `peak_bytes` is the most held at once, a new
     graph included before the limit drops others; `too_large` maps the keys
     whose graph passed half the limit to its bytes."""
 
@@ -164,7 +173,8 @@ class StageCache:
         self._unprepared: set[tuple] = set()  # keys `prepare` left uncaptured
         self._eager = 0
         self._lock = threading.Lock()
-        self.captures = self.replays = self.evictions = self.uncaptured = self.peak_bytes = 0
+        self.captures = self.replays = self.eager_runs = 0
+        self.evictions = self.uncaptured = self.peak_bytes = 0
 
     def held(self, device: torch.device | None = None) -> int:
         """Bytes the graphs hold, on `device` or on every card."""
@@ -173,24 +183,42 @@ class StageCache:
     def call(self, name: str, fn: Callable, *args, clone: bool = True):
         device = _stage_device(args)
         if device is None:
-            return fn(*args)
+            with trace.span(f"stage {name}: eager"):
+                return fn(*args)
         with self._lock:
             key = _key(name, device, args)
-            if self._eager or key in self.too_large:
-                return fn(*_on(device, args))
-            if key in self._unprepared:  # no capture where `prepare` found no memory
-                self._unprepared.discard(key)
-                return fn(*_on(device, args))
-            entry = self._graphs.get(key)
-            if entry is None:
-                return self._first_call(key, fn, device, args)
-            self._graphs.move_to_end(key)
-            for buf, a in zip(entry.inputs, args):
-                buf.copy_(a, non_blocking=True)
-            entry.graph.replay()
-            pk.add_launches(entry.launches)
-            self.replays += 1
-            return entry.output.clone() if clone else entry.output
+            outcome = self._outcome(key, device)
+            with trace.span(f"stage {name}: {outcome}"):
+                if outcome == "capture":
+                    return self._first_call(key, fn, device, args)
+                if outcome == "eager":
+                    self.eager_runs += 1
+                    return fn(*_on(device, args))
+                entry = self._graphs[key]
+                self._graphs.move_to_end(key)
+                for buf, a in zip(entry.inputs, args):
+                    buf.copy_(a, non_blocking=True)
+                entry.graph.replay()
+                pk.add_launches(entry.launches)
+                self.replays += 1
+                return entry.output.clone() if clone else entry.output
+
+    def _outcome(self, key: tuple, device: torch.device) -> str:
+        """What a call at `key` does: "replay" its graph, "capture" one (a
+        first call with the memory to), or run "eager" (under `eager()`, a
+        graph too large, a key `prepare` left uncaptured, a first call while
+        the card is short of memory)."""
+        if self._eager or key in self.too_large:
+            return "eager"
+        if key in self._unprepared:  # no capture where `prepare` found no memory
+            self._unprepared.discard(key)
+            return "eager"
+        if key in self._graphs:
+            return "replay"
+        if _card_memory(device)[0] < limit(device):
+            self.uncaptured += 1
+            return "eager"
+        return "capture"
 
     def prepare(self, name: str, fn: Callable, *args) -> None:
         """Capture the graph at the key of `args` now, unless it is held,
@@ -220,13 +248,11 @@ class StageCache:
                 self._unprepared.add(key)
 
     def _first_call(self, key: tuple, fn: Callable, device: torch.device, args):
-        """Run fn eagerly (its result is returned), then capture it if the
-        card has the memory, and keep the graph if it fits."""
+        """Run fn eagerly (its result is returned), then capture it, and
+        keep the graph if it fits. The caller has found the card's memory
+        enough."""
         out = fn(*_on(device, args))
         bound = limit(device)
-        if _card_memory(device)[0] < bound:
-            self.uncaptured += 1
-            return out
         inputs = tuple(torch.empty(a.shape, dtype=a.dtype, device=device) for a in args)
         with pk.recorded_launches() as launches:
             try:
@@ -275,13 +301,14 @@ class StageCache:
             self._graphs.clear()
             self.too_large.clear()
             self._unprepared.clear()
-            self.captures = self.replays = self.evictions = self.uncaptured = self.peak_bytes = 0
+            self.captures = self.replays = self.eager_runs = 0
+            self.evictions = self.uncaptured = self.peak_bytes = 0
         torch.cuda.empty_cache()
 
     def stats(self) -> dict:
         return {"graphs": len(self._graphs), "captures": self.captures, "replays": self.replays,
-                "evictions": self.evictions, "uncaptured": self.uncaptured, "bytes": self.held(),
-                "peak_bytes": self.peak_bytes,
+                "eager": self.eager_runs, "evictions": self.evictions, "uncaptured": self.uncaptured,
+                "bytes": self.held(), "peak_bytes": self.peak_bytes,
                 "too_large": sorted(k[0] for k in self.too_large)}
 
 

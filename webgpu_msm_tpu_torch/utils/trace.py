@@ -5,13 +5,16 @@ Nested phase timers on the host clock with a summary table, and a
 `torch.profiler` capture of the device timeline in place of the JAX
 package's `xla_trace`.
 
-    from webgpu_msm_tpu_torch.utils.trace import time_begin, time_end, phase
+    from webgpu_msm_tpu_torch.utils.trace import time_begin, time_end, phase, span
 
     time_begin("convert inputs")
     ...
     time_end("convert inputs")          # logs "convert inputs: 12.3 ms"
 
-    with phase("device msm"):
+    with phase("device msm"):           # the host clock alone
+        ...
+
+    with span("fetch"):                 # the host clock, and a profiler range
         ...
 
     with profiler_trace("traces/msm"):  # traces/msm/trace.json, for Perfetto or chrome://tracing
@@ -21,6 +24,34 @@ A phase is a host clock: around work that the device runs later (copies
 and kernels queued on a CUDA stream) it times the queueing, not the
 device. Only a phase that ends in a synchronization, such as the fetch of
 a result to the host, includes the device's time.
+
+The program's call sites use `span`: a phase that, while a
+`torch.profiler` session records, is also a profiler range named
+`RANGE_PREFIX + label`, on the clock of the profiler's kernel, copy and
+memset records, so that every idle stretch of the device can be put down
+to what the host was doing. With no profiler on, a span creates no range.
+`phase` stays the host clock alone: a caller that wraps it in a range of
+its own gets no second range from the program, which never calls it. No
+span nests inside another of the same label (the timers are keyed by
+label). The spans of one wire call or plan job, in order:
+
+- "check inputs (wire)": validation only (`api._wire_inputs`, the z
+  check; `MSMPlan._scalars_wire`; the engine's `_wire_rows` /
+  `_scalar_rows`);
+- "slice/pad inputs (wire)": the x||y and scalar rows written into pinned
+  memory (the wire path), or "stage scalars (plan)": the plan job's
+  scalar rows and its signed-digit test;
+- "queue stages": the identity carry and every stage call of the job,
+  queued, not waited for; inside it one "stage <name>: <outcome>" for each
+  `utils/cache.stage_call`, the outcome `replay`, `capture` or `eager`;
+- "fetch": the host waiting for the device and the device-to-host copy;
+- "combine windows": the window sums to points, their combination and
+  the affine result, in Python integers.
+
+The planes path keeps the JAX engine's "convert inputs" and "device msm".
+
+`records()` keeps the newest `MAX_RECORDS` (label, ms) pairs; `dropped()`
+counts the older ones let go since the last `reset()`.
 """
 from __future__ import annotations
 
@@ -30,10 +61,16 @@ import os
 import time
 from typing import Dict, List
 
+import torch
+
 logger = logging.getLogger("webgpu_msm_tpu_torch")
+
+MAX_RECORDS = 1 << 16
+RANGE_PREFIX = "phase: "
 
 _starts: Dict[str, float] = {}
 _records: List[tuple[str, float]] = []
+_dropped = 0  # records let go from the front of `_records`
 enabled = True
 
 
@@ -43,9 +80,13 @@ def time_begin(label: str) -> None:
 
 
 def time_end(label: str) -> float:
+    global _dropped
     if not enabled or label not in _starts:
         return 0.0
     ms = (time.perf_counter() - _starts.pop(label)) * 1000
+    if len(_records) >= 2 * MAX_RECORDS:  # let the oldest go in bulk, not one a record
+        del _records[:MAX_RECORDS]
+        _dropped += MAX_RECORDS
     _records.append((label, ms))
     logger.info("%s: %.1f ms", label, ms)
     return ms
@@ -60,17 +101,39 @@ def phase(label: str):
         time_end(label)
 
 
+@contextlib.contextmanager
+def span(label: str):
+    """A phase, and a profiler range `RANGE_PREFIX + label` while a
+    profiler records."""
+    with (torch.autograd.profiler.record_function(RANGE_PREFIX + label)
+          if torch.autograd.profiler._is_profiler_enabled else contextlib.nullcontext()):
+        time_begin(label)
+        try:
+            yield
+        finally:
+            time_end(label)
+
+
 def records() -> List[tuple[str, float]]:
-    return list(_records)
+    """The newest `MAX_RECORDS` (label, ms) pairs, oldest first."""
+    return _records[-MAX_RECORDS:]
+
+
+def dropped() -> int:
+    """Records let go since the last `reset()`: all but the newest
+    `MAX_RECORDS`."""
+    return _dropped + max(len(_records) - MAX_RECORDS, 0)
 
 
 def reset() -> None:
+    global _dropped
     _starts.clear()
     _records.clear()
+    _dropped = 0
 
 
 def summary() -> str:
-    lines = [f"{label:32s} {ms:10.1f} ms" for label, ms in _records]
+    lines = [f"{label:32s} {ms:10.1f} ms" for label, ms in records()]
     return "\n".join(lines)
 
 
@@ -78,7 +141,6 @@ def summary() -> str:
 def profiler_trace(log_dir: str):
     """Profile the block's host ops and device kernels with
     `torch.profiler` and write a Chrome trace (`trace.json`) to log_dir."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
