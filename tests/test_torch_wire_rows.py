@@ -220,6 +220,69 @@ def test_z_is_one_reads_the_last_four_u64_words():
     assert not gpu_engine.z_is_one(bad)
 
 
+def plain_z_is_one(rows: np.ndarray) -> bool:
+    """The plain z test: numpy compares the last four u64 words of every
+    row with z == 1's."""
+    z_one = np.array([0] * 7 + [1], dtype=np.uint32).view(np.uint64)
+    return bool((rows.view(np.uint64)[:, 12:] == z_one).all())
+
+
+ROWS_2P17 = 1 << 17
+Z_CASES = (
+    [pytest.param(n, (), None, id=f"clean-{n}") for n in (1, 3, (1 << 16) + 1, (1 << 18) + 3)]
+    + [pytest.param(ROWS_2P17, (70_000,), (w, 0 if w == 31 else 1), id=f"word-{w}")
+       for w in range(24, 32)]
+    + [pytest.param(ROWS_2P17, (70_000,), (31, 0x100), id="low-word-other-byte")]
+    + [pytest.param(ROWS_2P17, (r,), (31, 7), id=f"row-{r}")
+       for r in (0, 32_767, 32_768, 65_535, ROWS_2P17 - 1)]
+    + [pytest.param(ROWS_2P17, "all", (31, 7), id="every-row")]
+)
+
+
+@pytest.mark.parametrize("path", ["serial", "parallel"])
+@pytest.mark.parametrize("n, bad_rows, bad_word", Z_CASES)
+def test_z_is_one_equals_the_plain_test(n, bad_rows, bad_word, path, monkeypatch):
+    """Both passes of the z test against the plain one, on one and on four
+    threads: the rows on either side of a likely block boundary of the
+    threads, the first and last rows, each of z's eight words."""
+    monkeypatch.setattr(gpu_engine, "_Z_PARALLEL_ROWS", 1 if path == "parallel" else 1 << 30)
+    rows = np.random.default_rng(n).integers(0, 1 << 32, size=(n, 32), dtype=np.uint32)
+    rows[:, 24:] = 0
+    rows[:, 31] = 1
+    if bad_word is not None:
+        word, value = bad_word
+        rows[slice(None) if bad_rows == "all" else list(bad_rows), word] = value
+    want = bad_word is None
+    assert plain_z_is_one(rows) == want
+    threads = torch.get_num_threads()
+    try:
+        for t in (1, 4):
+            torch.set_num_threads(t)
+            assert gpu_engine.z_is_one(rows) == want
+    finally:
+        torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize("entry", ["wire", "fortran-order", "int64", "batch-shared"])
+def test_z_test_stats_count_calls_rows_and_copies(case, entry):
+    """One call and n rows a call; a point array that is not contiguous u32
+    is copied first and counted; a point array shared by the jobs of a
+    batch is tested once."""
+    _, _, pw, sw, want = case
+    gpu_engine.reset_z_test_stats()
+    if entry == "batch-shared":
+        got = tm.compute_msm_batch([pw, pw], [sw, sw], config=CFG, device="cpu")
+    else:
+        points = {"wire": pw, "fortran-order": np.asfortranarray(pw),
+                  "int64": pw.astype(np.int64)}[entry]
+        got = [tm.compute_msm(points, sw, config=CFG, device="cpu")]
+    assert [(r.x, r.y) for r in got] == [want] * len(got)
+    copies = int(entry in ("fortran-order", "int64"))
+    assert gpu_engine.z_test_stats() == {"calls": 1, "rows": N, "copies": copies}
+    gpu_engine.reset_z_test_stats()
+    assert gpu_engine.z_test_stats() == {"calls": 0, "rows": 0, "copies": 0}
+
+
 def test_plan_from_jax_niels_planes_runs_the_same_jobs(case):
     """A JAX plan's resident state is Niels planes; `from_state` packs them
     once into the rows a plan built from the wire rows holds, and the jobs

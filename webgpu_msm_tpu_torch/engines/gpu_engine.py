@@ -355,18 +355,52 @@ def msm_affine_batch(jobs: Sequence[tuple[Sequence[ExtPoint], Sequence[int]]],
 # z == 1 as the last four u64 words of a row, from a view, so that it holds
 # on any byte order.
 _Z_ONE = np.array([0] * 7 + [1], dtype=np.uint32).view(np.uint64)
+_Z_ONE_T = torch.from_numpy(_Z_ONE.view(np.int64))
+
+# From this many rows on, the z test is one pass split over the host's
+# CPUs; below it, numpy's pass on one core. A parallel pass waits for its
+# slowest thread, and on a shared host a thread that loses its core for a
+# time slice costs a few ms: on an H100's 8-CPU host a 2^16-row wire call's
+# p95 rose from 11.1 to 13.6 ms with the parallel pass, and was even at
+# 2^18 rows, where the serial pass takes 9 ms.
+_Z_PARALLEL_ROWS = 1 << 18
+
+# How often the z test engages (`z_test_stats`).
+_z_tests = {"calls": 0, "rows": 0, "copies": 0}
+
+
+def z_test_stats() -> dict:
+    """The z test's counts since the last reset: calls, rows tested, and
+    copies, the point arrays `as_wire_rows` had to copy first because they
+    were not contiguous u32 (the traffic that misses the in-place pass)."""
+    return dict(_z_tests)
+
+
+def reset_z_test_stats() -> None:
+    _z_tests.update(calls=0, rows=0, copies=0)
 
 
 def as_wire_rows(points_be: np.ndarray) -> np.ndarray:
     """Wire points as contiguous [n, 32] u32 rows; a wider integer array is
     range-checked."""
-    return np.ascontiguousarray(convert.as_u32_array(points_be, "wire points")).reshape(-1, 32)
+    rows = np.ascontiguousarray(convert.as_u32_array(points_be, "wire points")).reshape(-1, 32)
+    if not np.may_share_memory(rows, points_be):
+        _z_tests["copies"] += 1
+    return rows
 
 
 def z_is_one(rows: np.ndarray) -> bool:
-    """Whether every contiguous [n, 32] u32 row has z == 1: one pass, z
-    read as four u64 words a row."""
-    return bool((rows.view(np.uint64)[:, 12:] == _Z_ONE).all())
+    """Whether every contiguous [n, 32] u32 row has z == 1: one pass over z,
+    read in place as four u64 words a row. From `_Z_PARALLEL_ROWS` rows on
+    the pass is `torch.equal`'s, one parallel region over the host's CPUs
+    with no intermediate; numpy's comparison of the same strided view runs
+    an inner loop of four words a row on one core."""
+    _z_tests["calls"] += 1
+    _z_tests["rows"] += rows.shape[0]
+    if rows.shape[0] < _Z_PARALLEL_ROWS:
+        return bool((rows.view(np.uint64)[:, 12:] == _Z_ONE).all())
+    z = torch.from_numpy(rows.view(np.int64))[:, 12:]
+    return torch.equal(z, _Z_ONE_T.expand(z.shape))
 
 
 def _wire_rows(points_be: np.ndarray, what: str, z_checked: bool = False) -> np.ndarray:
