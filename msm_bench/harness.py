@@ -178,7 +178,9 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device, t_proce
         raise ForbiddenImport(found)
     del state  # the program's state is freed before the reference runs
 
-    checks = _check(inputs, groups, calls, seed)
+    t_check = time.perf_counter()
+    checks = _check(inputs, groups, calls, seed, device)
+    print(f"reference check s: {time.perf_counter() - t_check:.3f}", file=stderr)
     msms = sum(len(c[3]) for c in calls)
     result = {
         "correct": all(checks[k]["value"] == 0 for k in ("wrong_results", "missing_results", "bad_inputs")),
@@ -275,7 +277,7 @@ def _device_info(device: torch.device, memory_peak: int) -> dict:
             "memory_peak_bytes": memory_peak}
 
 
-def _check(inputs, groups: list, calls: list, seed: int) -> dict:
+def _check(inputs, groups: list, calls: list, seed: int, device: torch.device) -> dict:
     """Every result of the window against the plain reference; the inputs'
     rows, a sample drawn from the seed, against their logs."""
     want: dict[int, tuple] = {}
@@ -285,7 +287,7 @@ def _check(inputs, groups: list, calls: list, seed: int) -> dict:
         missing += max(len(sets) - len(results), 0)
         for s, got in zip(sets, results):
             if id(s) not in want:
-                want[id(s)] = expected.expected_result(inputs.k0, s)
+                want[id(s)] = expected.expected_result(inputs.k0, s, device)
             wrong += tuple(got) != want[id(s)]
     first = inputs.sets[0]
     rows = np.random.default_rng(seed).choice(len(first.chain_index), size=min(CHECKED_ROWS, len(first.chain_index)),

@@ -7,8 +7,9 @@ from . import expected
 
 
 def setup(inputs, device):
-    return inputs.k0
+    return inputs.k0, device
 
 
-def call(k0, sets):
-    return [expected.control_result(k0, s) for s in sets]
+def call(state, sets):
+    k0, device = state
+    return [expected.control_result(k0, s, device) for s in sets]

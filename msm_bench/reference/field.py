@@ -10,6 +10,9 @@ few large calls; it shares nothing with the program's kernels.
 """
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from .curve import P
@@ -18,22 +21,28 @@ LIMBS = 16
 MASK = 0xFFFF
 R = 1 << 256
 N0 = (-pow(P, -1, 1 << 16)) % (1 << 16)  # -P^-1 mod 2^16
+HOST_LEVEL = 1 << 12  # a product tree's narrowest levels cost more in launches than in Python ints
 
 
 def to_limbs(values: list[int], device) -> torch.Tensor:
     """Python ints below 2^256 -> [16, n] int64 limbs."""
-    rows = [[(v >> (16 * i)) & MASK for v in values] for i in range(LIMBS)]
-    return torch.tensor(rows, dtype=torch.int64, device=device)
+    raw = b"".join(v.to_bytes(32, "little") for v in values)
+    limbs = np.frombuffer(raw, dtype="<u2").reshape(-1, LIMBS).T.astype(np.int64)
+    return torch.from_numpy(limbs).to(device)
 
 
 def from_limbs(t: torch.Tensor) -> list[int]:
-    """[16, n] limbs -> Python ints."""
-    cols = t.cpu().tolist()
-    return [sum(cols[i][j] << (16 * i) for i in range(LIMBS)) for j in range(t.shape[1])]
+    """[16, n] limbs, each in [0, 2^16) -> Python ints."""
+    raw = t.cpu().numpy().astype("<u2").T.tobytes()
+    return [int.from_bytes(raw[j:j + 32], "little") for j in range(0, len(raw), 32)]
 
 
+@functools.lru_cache(maxsize=16)
 def constant(value: int, device) -> torch.Tensor:
-    """One element as a [16, 1] column, broadcast against [16, n]."""
+    """One element as a [16, 1] column, broadcast against [16, n]; made
+    once a device and shared, never written: a copy to the card waits for
+    the work queued before it, so a fresh copy in each product would keep
+    the host from running ahead of the device."""
     return to_limbs([value], device)
 
 
@@ -74,11 +83,11 @@ def mont_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     n = torch.broadcast_shapes(a.shape, b.shape)[1:]
     t = torch.zeros((2 * LIMBS + 1,) + n, dtype=torch.int64, device=a.device)
     for i in range(LIMBS):
-        t[i:i + LIMBS] += a[i] * b
+        t[i:i + LIMBS].addcmul_(b, a[i:i + 1])
     p = constant(P, a.device)
     for i in range(LIMBS):
         m = ((t[i] & MASK) * N0) & MASK
-        t[i:i + LIMBS] += m * p
+        t[i:i + LIMBS].addcmul_(p, m[None])
         t[i + 1] += t[i] >> 16  # t[i] is now a multiple of 2^16
     return _reduce_once(_carry(t[LIMBS:]))
 
@@ -94,26 +103,40 @@ def from_mont(a: torch.Tensor) -> torch.Tensor:
 
 def batch_inverse(v: torch.Tensor) -> torch.Tensor:
     """Montgomery-form inverses of the [16, n] Montgomery-form elements
-    of v, none of them zero: a product tree up, one inverse in Python
-    ints, and the tree down (about 3n products in log2 n passes)."""
+    of v, none of them zero: a product tree up (each level the products
+    of its two halves, element i with element i + width / 2) until
+    `HOST_LEVEL` elements are left, their inverses in Python ints, and the
+    tree down (about 3n products, each level one pass over contiguous
+    halves)."""
     n = v.shape[1]
     width = 1 << max(n - 1, 0).bit_length()
     one = torch.zeros((LIMBS, width - n), dtype=torch.int64, device=v.device)
     one[:] = constant(R % P, v.device)
     levels = [torch.cat([v, one], dim=1)]
-    while levels[-1].shape[1] > 1:
-        lv = levels[-1]
-        levels.append(mont_mul(lv[:, 0::2], lv[:, 1::2]))
-    root = from_limbs(levels[-1])[0]  # (prod v) R mod P
-    if root == 0:
-        raise ZeroDivisionError("batch_inverse: an element is zero")
-    inv = constant(R * R % P * pow(root, -1, P) % P, v.device)  # (prod v)^-1 R
-    for lv in reversed(levels[:-1]):
-        down = torch.empty_like(lv)
-        down[:, 0::2] = mont_mul(inv, lv[:, 1::2])
-        down[:, 1::2] = mont_mul(inv, lv[:, 0::2])
-        inv = down
+    while levels[-1].shape[1] > HOST_LEVEL:
+        lv, h = levels[-1], levels[-1].shape[1] // 2
+        levels.append(mont_mul(lv[:, :h], lv[:, h:]))
+    inv = to_limbs(_inverses_mont(from_limbs(levels.pop())), v.device)
+    for lv in reversed(levels):
+        h = lv.shape[1] // 2
+        inv = torch.cat([mont_mul(inv, lv[:, h:]), mont_mul(inv, lv[:, :h])], dim=1)
     return inv[:, :n]
+
+
+def _inverses_mont(xs: list[int]) -> list[int]:
+    """(x R^-1)^-1 R = R^2 x^-1 mod P for each Montgomery form x, by one
+    inverse and prefix products (Montgomery's trick) in Python ints."""
+    prefix, acc = [], 1
+    for x in xs:
+        prefix.append(acc)
+        acc = acc * x % P
+    if acc == 0:
+        raise ZeroDivisionError("batch_inverse: an element is zero")
+    inv, out = R * R % P * pow(acc, -1, P) % P, [0] * len(xs)
+    for i in reversed(range(len(xs))):
+        out[i] = inv * prefix[i] % P
+        inv = inv * xs[i] % P
+    return out
 
 
 def reduce_256(t: torch.Tensor) -> torch.Tensor:
