@@ -90,6 +90,12 @@ CALL_SPANS = {  # the program's spans of one call at n 16, w 8, one batch of 4 x
                  "stage finish_w8_s1: eager", "queue stages"] * 2
               + ["fetch", "combine windows"] * 2),
 }
+CALL_COUNTS = {  # the counters after the same call: 64 bytes a point's x||y row, 32 a scalar row
+    "wire": {trace.STAGED_BYTES: 16 * 96, trace.BATCH_STAGES: 1},
+    "planes": {trace.STAGED_BYTES: 0, trace.BATCH_STAGES: 1},
+    "plan": {trace.STAGED_BYTES: 16 * 32, trace.BATCH_STAGES: 1},
+    "batch": {trace.STAGED_BYTES: 2 * 16 * 32, trace.BATCH_STAGES: 2},
+}
 CFG = MSMConfig(window_size=8, n_chunks=4, chunk_len=4)
 
 
@@ -113,12 +119,14 @@ def test_cpu_calls_record_the_jax_phases(clean_trace, path):
     """A wire call records the JAX engine's wire staging phase and the
     port's spans around it, a list call the JAX planes phases, a plan job
     and a two-job `msm_batch` theirs for each job (the fetches after every
-    job is queued)."""
+    job is queued); then the counters that are not zero, at their totals."""
     call, expected = call_of(path)
     trace.reset()
     got = call()
     assert [(r.x, r.y) for r in got] == expected
-    assert [label for label, _ in trace.records()] == CALL_SPANS[path]
+    counted = [(label, n) for label, n in CALL_COUNTS[path].items() if n]
+    assert [label for label, _ in trace.records()] == CALL_SPANS[path] + [label for label, _ in counted]
+    assert trace.records()[len(CALL_SPANS[path]):] == counted and trace.counts() == CALL_COUNTS[path]
 
 
 def wrap_phase_as_the_benchmark_does(monkeypatch):
@@ -162,7 +170,7 @@ def test_program_spans_are_profiler_ranges_once(clean_trace, wrapped, monkeypatc
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         assert [(r.x, r.y) for r in call()] == [(0, 1)]
     ranges = [e for e in prof.events() if e.name.startswith(trace.RANGE_PREFIX)]
-    want = [trace.RANGE_PREFIX + label for label, _ in trace.records()]
+    want = [trace.RANGE_PREFIX + label for label, _ in trace.records() if label not in trace.COUNTERS]
     assert sorted(e.name for e in ranges) == sorted(want) and len(want) == len(CALL_SPANS["wire"])
     for a in ranges:
         assert not any(b is not a and b.name == a.name and b.time_range.start <= a.time_range.start
@@ -182,7 +190,8 @@ def test_a_call_makes_no_range_with_no_profiler_on(clean_trace, monkeypatch):
     trace.reset()
     for call, expected in calls:
         assert [(r.x, r.y) for r in call()] == expected
-    assert made == [] and len(trace.records()) == len(CALL_SPANS["wire"]) + len(CALL_SPANS["plan"])
+    spans = [label for label, _ in trace.records() if label not in trace.COUNTERS]
+    assert made == [] and len(spans) == len(CALL_SPANS["wire"]) + len(CALL_SPANS["plan"])
 
 
 def test_phase_is_the_host_clock_alone_and_span_adds_a_range(clean_trace):

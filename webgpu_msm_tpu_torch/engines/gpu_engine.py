@@ -179,6 +179,7 @@ def _stage_xy(rows: np.ndarray, pad_to: int, device: torch.device) -> torch.Tens
     np.copyto(a[:n], rows[:, :16])
     a[n:] = 0
     a[n:, 15] = 1
+    trace.count(trace.STAGED_BYTES, t.nbytes)
     return t
 
 
@@ -189,6 +190,7 @@ def _stage_scalars(scalars_be: np.ndarray, pad_to: int, device: torch.device) ->
     n = scalars_be.shape[0]
     np.copyto(a[:n], scalars_be)
     a[n:] = 0
+    trace.count(trace.STAGED_BYTES, t.nbytes)
     return t
 
 
@@ -287,6 +289,7 @@ def _device_msm(points_plain, scalar_words, *, window_size, n_chunks, chunk_len,
                   signed_digits=signed_digits)
     bname = _batch_name("batch_planes", window_size, n_chunks, chunk_len, signed_digits)
     carry = _identity_carry(window_size, signed_digits, device)
+    trace.count(trace.BATCH_STAGES, n // M)
     for b in range(n // M):
         sl = slice(b * M, (b + 1) * M)
         if host_input:  # pinned: the stage copies them to the card
@@ -440,6 +443,7 @@ def _device_msm_wire_staged(xy_t: torch.Tensor, sc_t: torch.Tensor, *, window_si
                   signed_digits=signed_digits)
     bname = _batch_name("wire_batch", window_size, n_chunks, chunk_len, signed_digits)
     carry = _identity_carry(window_size, signed_digits, device)
+    trace.count(trace.BATCH_STAGES, n // M)
     for b in range(n // M):
         carry = _call_stage(bname, _wire_batch_impl, static, xy_t[b * M : (b + 1) * M],
                             sc_t[b * M : (b + 1) * M], carry, clone=False)
@@ -512,14 +516,15 @@ class WirePlan:
         self.n = rows.shape[0]
         self.w, self.C, self.L, self.pad_to = _padded_plan(config, self.n)
         M = self.C * self.L
-        xy_t = _stage_xy(rows, self.pad_to, self.device)
-        # The batch on the device: a stage's device is that of its CUDA
-        # tensors. Its rows [M, 24] stand for the JAX stage's Niels planes.
-        self._rows = [
-            _call_stage(f"plan_niels_m{M}", pk.to_niels_xy_rows, {},
-                        xy_t[b * M : (b + 1) * M].to(self.device, non_blocking=True))
-            for b in range(self.pad_to // M)
-        ]
+        with trace.span("build plan"):
+            xy_t = _stage_xy(rows, self.pad_to, self.device)
+            # The batch on the device: a stage's device is that of its CUDA
+            # tensors. Its rows [M, 24] stand for the JAX stage's Niels planes.
+            self._rows = [
+                _call_stage(f"plan_niels_m{M}", pk.to_niels_xy_rows, {},
+                            xy_t[b * M : (b + 1) * M].to(self.device, non_blocking=True))
+                for b in range(self.pad_to // M)
+            ]
 
     @classmethod
     def from_state(cls, niels: Sequence[torch.Tensor], *, n: int, w: int, C: int, L: int,
@@ -549,6 +554,7 @@ class WirePlan:
             static = dict(window_size=self.w, n_chunks=self.C, chunk_len=self.L, signed_digits=signed)
             bname = _batch_name("fixed_batch", self.w, self.C, self.L, signed)
             carry = _identity_carry(self.w, signed, self.device)
+            trace.count(trace.BATCH_STAGES, len(self._rows))
             for b, rows in enumerate(self._rows):
                 carry = _call_stage(bname, _fixed_batch_impl, static, rows, sc_t[b * M : (b + 1) * M],
                                     carry, clone=False)

@@ -49,9 +49,22 @@ label). The spans of one wire call or plan job, in order:
   the affine result, in Python integers.
 
 The planes path keeps the JAX engine's "convert inputs" and "device msm".
+Set-up has one span: "build plan", a `WirePlan`'s staging of the bases'
+x||y rows and their conversion to the resident rows.
 
-`records()` keeps the newest `MAX_RECORDS` (label, ms) pairs; `dropped()`
-counts the older ones let go since the last `reset()`.
+Two counters (`count`), each one integer add, say how much work the spans
+cover:
+
+- `STAGED_BYTES`, "bytes staged": the bytes written into host tensors for
+  the device (pinned on a GPU) by the wire path's and the plan's staging
+  (`gpu_engine._stage_xy`, `_stage_scalars`);
+- `BATCH_STAGES`, "batch stages queued": the batch-stage calls queued
+  (`wire_batch`, `fixed_batch`, `batch_planes`), one a batch of a job.
+
+`records()` keeps the newest `MAX_RECORDS` (label, ms) pairs of the spans,
+then one (label, total) for each counter that is not zero; `dropped()`
+counts the span records let go since the last `reset()`, which also
+zeroes the counters.
 """
 from __future__ import annotations
 
@@ -67,10 +80,14 @@ logger = logging.getLogger("webgpu_msm_tpu_torch")
 
 MAX_RECORDS = 1 << 16
 RANGE_PREFIX = "phase: "
+STAGED_BYTES = "bytes staged"
+BATCH_STAGES = "batch stages queued"
+COUNTERS = (STAGED_BYTES, BATCH_STAGES)
 
 _starts: Dict[str, float] = {}
 _records: List[tuple[str, float]] = []
 _dropped = 0  # records let go from the front of `_records`
+_counts: Dict[str, int] = dict.fromkeys(COUNTERS, 0)
 enabled = True
 
 
@@ -114,9 +131,21 @@ def span(label: str):
             time_end(label)
 
 
-def records() -> List[tuple[str, float]]:
-    """The newest `MAX_RECORDS` (label, ms) pairs, oldest first."""
-    return _records[-MAX_RECORDS:]
+def count(label: str, n: int) -> None:
+    """Add n to the counter `label`, one of `COUNTERS`."""
+    if enabled:
+        _counts[label] += n
+
+
+def counts() -> Dict[str, int]:
+    """Each counter's total since the last `reset()`."""
+    return dict(_counts)
+
+
+def records() -> List[tuple]:
+    """The newest `MAX_RECORDS` (label, ms) pairs of the spans, oldest
+    first, then (label, total) of each counter that is not zero."""
+    return _records[-MAX_RECORDS:] + [(label, n) for label, n in _counts.items() if n]
 
 
 def dropped() -> int:
@@ -130,10 +159,12 @@ def reset() -> None:
     _starts.clear()
     _records.clear()
     _dropped = 0
+    _counts.update(dict.fromkeys(COUNTERS, 0))
 
 
 def summary() -> str:
-    lines = [f"{label:32s} {ms:10.1f} ms" for label, ms in records()]
+    lines = [f"{label:32s} {ms:10.1f} ms" for label, ms in _records[-MAX_RECORDS:]]
+    lines += [f"{label:32s} {n:10d}" for label, n in _counts.items() if n]
     return "\n".join(lines)
 
 
