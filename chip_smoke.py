@@ -610,10 +610,10 @@ def host_dispatch(api, gpu_engine, fn):
     """One synchronized wire call `fn`: (result, host ms until the engine's
     `_dispatch_wire` returned, having queued every copy and kernel without a
     sync, wall ms, {host step: ms}). The steps are the API's z check, the
-    writes of x||y and of the scalars into pinned memory, and the rest of the
-    dispatch, mostly queueing the copies and launches."""
-    steps = {"z check": (api, "_wire_point_rows"), "x||y into pinned": (gpu_engine, "_stage_xy"),
-             "scalars into pinned": (gpu_engine, "_stage_scalars"),
+    writes of x||y and scalar rows into pinned memory (two a batch, as the
+    batches are streamed), and the rest of the dispatch, mostly queueing
+    the copies and launches."""
+    steps = {"z check": (api, "_wire_point_rows"), "rows into pinned": (gpu_engine._Staged, "rows"),
              "dispatch": (gpu_engine, "_dispatch_wire")}
     with timed_steps(steps, sync=False) as spent:
         torch.cuda.synchronize()
@@ -621,10 +621,10 @@ def host_dispatch(api, gpu_engine, fn):
         out = fn()
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-    check(all(len(v) == 1 for v in spent.values()), f"the wire call's host steps ran {spent}")
-    ms = {name: (v[0][1] - v[0][0]) * 1e3 for name, v in spent.items()}
-    ms["rest of dispatch (queueing copies and launches)"] = (
-        ms.pop("dispatch") - ms["x||y into pinned"] - ms["scalars into pinned"])
+    check(len(spent["z check"]) == len(spent["dispatch"]) == 1 and len(spent["rows into pinned"]) % 2 == 0,
+          f"the wire call's host steps ran {spent}")
+    ms = {name: sum(end - start for start, end in v) * 1e3 for name, v in spent.items()}
+    ms["rest of dispatch (queueing copies and launches)"] = ms.pop("dispatch") - ms["rows into pinned"]
     return out, (spent["dispatch"][0][1] - t0) * 1e3, (t1 - t0) * 1e3, ms
 
 

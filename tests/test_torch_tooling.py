@@ -89,26 +89,40 @@ CALL_SPANS = {  # the program's spans of one call at n 16, w 8, one batch of 4 x
               + ["check inputs (wire)", "stage scalars (plan)", "stage fixed_batch_w8_c4x4_s1: eager",
                  "stage finish_w8_s1: eager", "queue stages"] * 2
               + ["fetch", "combine windows"] * 2),
+    # two batches of 2 x 4: each batch's rows are written, then its stage is
+    # queued, in turns; the first queue makes the carry, the last the finish
+    "wire-2-batches": ["check inputs (wire)", "check inputs (wire)",
+                       "slice/pad inputs (wire)", "stage wire_batch_w8_c2x4_s1: eager", "queue stages",
+                       "slice/pad inputs (wire)", "stage wire_batch_w8_c2x4_s1: eager",
+                       "stage finish_w8_s1: eager", "queue stages", "fetch", "combine windows"],
+    "plan-2-batches": ["check inputs (wire)", "check inputs (wire)",
+                       "stage scalars (plan)", "stage fixed_batch_w8_c2x4_s1: eager", "queue stages",
+                       "stage scalars (plan)", "stage fixed_batch_w8_c2x4_s1: eager",
+                       "stage finish_w8_s1: eager", "queue stages", "fetch", "combine windows"],
 }
 CALL_COUNTS = {  # the counters after the same call: 64 bytes a point's x||y row, 32 a scalar row
-    "wire": {trace.STAGED_BYTES: 16 * 96, trace.BATCH_STAGES: 1},
-    "planes": {trace.STAGED_BYTES: 0, trace.BATCH_STAGES: 1},
-    "plan": {trace.STAGED_BYTES: 16 * 32, trace.BATCH_STAGES: 1},
-    "batch": {trace.STAGED_BYTES: 2 * 16 * 32, trace.BATCH_STAGES: 2},
+    path: {trace.STAGED_BYTES: staged, trace.BATCH_STAGES: batches, trace.BATCHES_STREAMED: streamed,
+           trace.SIGNED_REQUEUES: 0}
+    for path, (staged, batches, streamed) in {
+        "wire": (16 * 96, 1, 0), "planes": (0, 1, 0), "plan": (16 * 32, 1, 0), "batch": (2 * 16 * 32, 2, 0),
+        "wire-2-batches": (16 * 96, 2, 1), "plan-2-batches": (16 * 32, 2, 1)}.items()
 }
 CFG = MSMConfig(window_size=8, n_chunks=4, chunk_len=4)
+CFG_2_BATCHES = MSMConfig(window_size=8, n_chunks=2, chunk_len=4)
 
 
 def call_of(path):
     """A CPU call of `path` at n 16 and its expected results; a plan is
     built first, outside the call."""
     pw, sw, expected = benchmark._wire_case(16)
+    cfg = CFG_2_BATCHES if path.endswith("-2-batches") else CFG
+    path = path.removesuffix("-2-batches")
     if path == "wire":
-        return lambda: [compute_msm(pw, sw, config=CFG, device="cpu")], [expected]
+        return lambda: [compute_msm(pw, sw, config=cfg, device="cpu")], [expected]
     if path == "planes":
         points, scalars, _ = benchmark._case(16)
-        return lambda: [compute_msm(points, scalars, config=CFG, device="cpu")], [expected]
-    plan = MSMPlan(pw, config=CFG, device="cpu")
+        return lambda: [compute_msm(points, scalars, config=cfg, device="cpu")], [expected]
+    plan = MSMPlan(pw, config=cfg, device="cpu")
     if path == "plan":
         return lambda: [plan.msm(sw)], [expected]
     return lambda: plan.msm_batch([sw, sw]), [expected] * 2
@@ -119,7 +133,9 @@ def test_cpu_calls_record_the_jax_phases(clean_trace, path):
     """A wire call records the JAX engine's wire staging phase and the
     port's spans around it, a list call the JAX planes phases, a plan job
     and a two-job `msm_batch` theirs for each job (the fetches after every
-    job is queued); then the counters that are not zero, at their totals."""
+    job is queued), a two-batch wire call or plan job its staging and
+    queueing spans in turns; then the counters that are not zero, at their
+    totals."""
     call, expected = call_of(path)
     trace.reset()
     got = call()

@@ -108,8 +108,8 @@ def case():
 def test_stage_writes_rows_once_with_identity_tail(case):
     _, _, pw, sw, _ = case
     cpu = torch.device("cpu")
-    xy = gpu_engine._stage_xy(pw, 32, cpu)
-    sc = gpu_engine._stage_scalars(sw, 32, cpu)
+    xy = gpu_engine._stage_xy(pw, 32, cpu).rows(0, 32)
+    sc = gpu_engine._stage_scalars(sw, 32, cpu).rows(0, 32)
     assert xy.dtype == sc.dtype == torch.int32
     want_xy = np.zeros((32, 16), np.uint32)
     want_xy[:N] = pw[:, :16]
@@ -289,7 +289,7 @@ def test_plan_from_jax_niels_planes_runs_the_same_jobs(case):
     give the same results."""
     pts, sc, pw, sw, want = case
     built = gpu_engine.WirePlan(pw, CFG, "cpu")
-    xy = planes_to_numpy(gpu_engine._stage_xy(pw, built.pad_to, torch.device("cpu")))
+    xy = planes_to_numpy(gpu_engine._stage_xy(pw, built.pad_to, torch.device("cpu")).rows(0, built.pad_to))
     niels = [np.asarray(te._wire_niels(jnp.asarray(xy)))[..., b * 16 : (b + 1) * 16]
              for b in range(2)]
     plan = gpu_engine.WirePlan.from_state(

@@ -38,12 +38,21 @@ label). The spans of one wire call or plan job, in order:
 - "check inputs (wire)": validation only (`api._wire_inputs`, the z
   check; `MSMPlan._scalars_wire`; the engine's `_wire_rows` /
   `_scalar_rows`);
-- "slice/pad inputs (wire)": the x||y and scalar rows written into pinned
-  memory (the wire path), or "stage scalars (plan)": the plan job's
-  scalar rows and its signed-digit test;
-- "queue stages": the identity carry and every stage call of the job,
-  queued, not waited for; inside it one "stage <name>: <outcome>" for each
-  `utils/cache.stage_call`, the outcome `replay`, `capture` or `eager`;
+- then, batch by batch, alternating and never nested:
+  - "slice/pad inputs (wire)": the batch's x||y and scalar rows written
+    into the job's pinned buffer (the wire path), or "stage scalars
+    (plan)": the batch's scalar rows (the plan); with signed digits, the
+    batch's signed-digit test on the rows just written;
+  - "queue stages": the batch's stage call, queued, not waited for; the
+    first also makes the identity carry, the last also queues the finish;
+    inside it one "stage <name>: <outcome>" for each
+    `utils/cache.stage_call`, the outcome `replay`, `capture` or `eager`.
+
+  So a job of k batches records k of each, in turns, and a one-batch job
+  one of each. A job whose scalars fail the signed-digit test (one at or
+  above 2^254) writes its remaining batches without queueing them, each
+  under the staging span, then records one "queue stages" that queues the
+  whole job again on unsigned digits, from a fresh identity carry;
 - "fetch": the host waiting for the device and the device-to-host copy;
 - "combine windows": the window sums to points, their combination and
   the affine result, in Python integers.
@@ -52,14 +61,20 @@ The planes path keeps the JAX engine's "convert inputs" and "device msm".
 Set-up has one span: "build plan", a `WirePlan`'s staging of the bases'
 x||y rows and their conversion to the resident rows.
 
-Two counters (`count`), each one integer add, say how much work the spans
+Four counters (`count`), each one integer add, say how much work the spans
 cover:
 
 - `STAGED_BYTES`, "bytes staged": the bytes written into host tensors for
-  the device (pinned on a GPU) by the wire path's and the plan's staging
-  (`gpu_engine._stage_xy`, `_stage_scalars`);
+  the device (pinned on a GPU) by the wire path's and the plan's staging,
+  counted a batch at a time (`gpu_engine._Staged.rows`);
 - `BATCH_STAGES`, "batch stages queued": the batch-stage calls queued
-  (`wire_batch`, `fixed_batch`, `batch_planes`), one a batch of a job.
+  (`wire_batch`, `fixed_batch`, `batch_planes`), one a batch of a job, and
+  one more a batch of a job queued again on unsigned digits;
+- `BATCHES_STREAMED`, "batches streamed": the batches of a wire call or
+  plan job queued before the job's last batch was written, k - 1 a job of
+  k batches;
+- `SIGNED_REQUEUES`, "signed re-queues": the jobs queued again on unsigned
+  digits after a batch failed the signed-digit test.
 
 `records()` keeps the newest `MAX_RECORDS` (label, ms) pairs of the spans,
 then one (label, total) for each counter that is not zero; `dropped()`
@@ -82,7 +97,9 @@ MAX_RECORDS = 1 << 16
 RANGE_PREFIX = "phase: "
 STAGED_BYTES = "bytes staged"
 BATCH_STAGES = "batch stages queued"
-COUNTERS = (STAGED_BYTES, BATCH_STAGES)
+BATCHES_STREAMED = "batches streamed"
+SIGNED_REQUEUES = "signed re-queues"
+COUNTERS = (STAGED_BYTES, BATCH_STAGES, BATCHES_STREAMED, SIGNED_REQUEUES)
 
 _starts: Dict[str, float] = {}
 _records: List[tuple[str, float]] = []
