@@ -37,8 +37,9 @@
      its `PINNED` result, and at 2^20 cold and warm, with a profile of the
      warm call and its host dispatch time (the host's clock until
      `_dispatch_wire` has queued the whole call, without a sync);
-   - the planes path: `compute_msm` on the same 2^20 points and scalars as
-     lists of `ExtPoint`s and ints (host marshalling timed apart);
+   - lists: `compute_msm` on the same 2^20 points and scalars as lists of
+     `ExtPoint`s and ints, which the API marshals to wire rows (the
+     marshal timed apart) for the wire path's kernels;
    - the fixed-base plan: `MSMPlan` once, then `msm_batch` of three 2^20
      scalar jobs, against the pinned result and the wire path's;
    - `compute_msm_batch` at 2^16 with one shared point array (the plan
@@ -57,8 +58,8 @@
      equal on all three outputs;
    - the hybrid engine on the 2^20 wire input at `cpu_work_ratio` 0.2
      (cold and warm, and its CPU and GPU shares alone) and at 1.0 (the
-     native engine alone, no kernel), and on the 2^16 lists at 0.2 (the
-     GPU share on the planes path);
+     native engine alone, no kernel), and on the 2^16 lists at 0.2 (both
+     shares on the marshalled wire rows);
    - `engine="cpu"` on the 2^16 lists (no kernel);
    - `engine="baseline"` at 2^16 (no kernel), with its host bucketing,
      device ladder and host combine timed apart;
@@ -116,7 +117,7 @@
      printed as one JSON line with each wire plan), and the resident rule
      at w 13-17 on the same inputs;
    - a trace summary (`utils/trace.py`) of one warm 2^20 wire call;
-   - the stage graphs (`utils/cache.py`) on the wire, planes, plan,
+   - the stage graphs (`utils/cache.py`) on the wire, plan,
      resident, sharded and `device_affine` paths at 2^20 (`graph_ab`):
      the cold call at a new key, then the graphs and `eager()` in turns
      on the same inputs, every output
@@ -1095,34 +1096,23 @@ def main() -> int:
             print(f"compute_msm 2^20 eager (no graphs): host dispatch {dispatch_ms:.1f} ms, wall {warm_ms:.1f} "
                   "ms; by step: " + ", ".join(f"{k} {v:.1f} ms" for k, v in split.items()) + f" [{smi}]")
             w20 = cfg.resolved_wire_plan(N)[0]
-            graph_ab("wire 2^20", stage_graphs, lambda: gpu_engine._dispatch_wire(pw, sw, cfg, dev, True)[0],
+            graph_ab("wire 2^20", stage_graphs, lambda: gpu_engine._dispatch_wire(pw, sw, cfg, dev)[0],
                      lambda out: check(affine_of(out, w20) == PINNED[20], "wire 2^20: differs from PINNED"), smi)
     for power in sorted(PINNED):  # the later phases run 2^16 and 2^20 only
         if power not in (16, 20):
             del inputs[power]
 
-    # 4b. the planes path: the same input as lists of ExtPoints and ints
+    # 4b. lists: the same input as lists of ExtPoints and ints, marshalled by
+    # the API to wire rows, then the wire path's kernels
     t0 = time.perf_counter()
-    gpu_engine.marshal_points(points, N)
-    gpu_engine.marshal_scalars(scalars, N)
+    api._job_rows(points, scalars)
     marshal_s = time.perf_counter() - t0
-    planes_kernels = ("to_niels",) + WIRE_KERNELS[1:]
-    res, ms, counts = drive("planes 2^20", pk, lambda: compute_msm(points, scalars, config=cfg, device=dev),
-                            planes_kernels, others(*planes_kernels), n_batches(N))
-    check(as_xy(res) == PINNED[20], "planes path 2^20: result differs from PINNED")
-    rows["to_niels"]["launches"] = counts["to_niels"]
-    print(f"planes path 2^20: equals PINNED[20]; launches {counts}")
-    print(f"planes path 2^20 wall: {ms / 1e3:.3f} s ({rate(ms)}), of which host marshalling of "
-          f"the lists about {marshal_s:.3f} s (timed apart) [{smi}]")
-    # its device part, on the lists marshalled once: the planes batches from
-    # host arrays at the wire plan
-    w_pl, C_pl, L_pl, pad_pl = gpu_engine._padded_plan(cfg, N)
-    planes_np, words_np = gpu_engine.marshal_points(points, pad_pl), gpu_engine.marshal_scalars(scalars, pad_pl)
-    graph_ab("planes 2^20", stage_graphs,
-             lambda: gpu_engine._device_msm(planes_np, words_np, window_size=w_pl, n_chunks=C_pl, chunk_len=L_pl,
-                                            signed_digits=gpu_engine._signed_ok(cfg, words_np), device=dev),
-             lambda out: check(affine_of(out, w_pl) == PINNED[20], "planes 2^20: differs from PINNED"), smi)
-    del planes_np, words_np
+    res, ms, counts = drive("lists 2^20", pk, lambda: compute_msm(points, scalars, config=cfg, device=dev),
+                            WIRE_KERNELS, others(*WIRE_KERNELS), n_batches(N))
+    check(as_xy(res) == PINNED[20], "lists 2^20: result differs from PINNED")
+    print(f"lists 2^20: equals PINNED[20]; launches {counts}")
+    print(f"lists 2^20 wall: {ms / 1e3:.3f} s ({rate(ms)}), of which the host's marshal of "
+          f"the lists to wire rows about {marshal_s:.3f} s (timed apart) [{smi}]")
 
     # 4d. the fixed-base plan: bases once, then three scalar jobs
     jobs = [sc] + [convert.bigints_to_u32_be(fixtures.random_scalars(N, seed=seed))
@@ -1150,7 +1140,7 @@ def main() -> int:
     # Three wire jobs queued before any is fetched: each finish's window sums
     # are cloned right after its replay, so each job returns its own result.
     got, ms, counts = drive("3 queued wire jobs 2^20", pk,
-                            lambda: gpu_engine.msm_affine_batch_wire([(pts, s) for s in jobs], cfg, dev, True),
+                            lambda: gpu_engine.msm_affine_batch_wire([(pts, s) for s in jobs], cfg, dev),
                             WIRE_KERNELS, others(*WIRE_KERNELS), len(jobs) * n_batches(N),
                             len(jobs) * n_batches(N))
     check(list(got) == want, "3 queued wire jobs 2^20: results differ from the eager calls'")
@@ -1294,16 +1284,14 @@ def main() -> int:
           f"(w {hyb.resolved_window_size_native(N)}, {cpu_engine.resolved_threads(hyb, False)} threads) "
           f"[host {os.cpu_count()} CPUs]")
 
-    # 4j. the hybrid on lists at 2^16: the GPU share takes the planes path
+    # 4j. the hybrid on lists at 2^16: marshalled to wire rows, then split
     points16, scalars16, pw16, sw16 = inputs[16]
     n16 = len(points16)
     n_gpu16 = n16 - int(n16 * hyb.cpu_work_ratio)
-    list_kernels = ("to_niels",) + WIRE_KERNELS[1:]
     res, ms, counts = drive("hybrid 0.2 lists 2^16", pk,
                             lambda: compute_msm(points16, scalars16, config=hyb, device=dev, engine="hybrid"),
-                            list_kernels, others(*list_kernels), n_batches(n_gpu16))
+                            WIRE_KERNELS, others(*WIRE_KERNELS), n_batches(n_gpu16))
     check(as_xy(res) == PINNED[16], "hybrid 0.2 lists 2^16: result differs from PINNED")
-    check(counts["to_niels"] == n_batches(n_gpu16), f"hybrid lists: to_niels launched {counts['to_niels']} times")
     print(f"hybrid 0.2 lists 2^16: equals PINNED[16]; {ms / 1e3:.3f} s; launches {counts} "
           f"[{smi}; host {os.cpu_count()} CPUs]")
 
@@ -1777,7 +1765,7 @@ def main() -> int:
         print(f"device_affine 2^20 wall: cold {cold_ms / 1e3:.3f} s ({rate(cold_ms)}), "
               f"warm {warm_ms / 1e3:.3f} s ({rate(warm_ms)}) [{smi}]")
         report = graph_ab("device_affine 2^20", stage_graphs,
-                          lambda: gpu_engine._dispatch_wire(pts, sc, cfg_affine, dev, True)[0],
+                          lambda: gpu_engine._dispatch_wire(pts, sc, cfg_affine, dev)[0],
                           lambda out: check(affine_of(out, w20) == PINNED[20], "device_affine 2^20: differs"), smi)
         finish_key = f"finish_affine_w{w20}_s1"
         check(any(k[0] == finish_key for k in stage_graphs.CACHE._graphs),

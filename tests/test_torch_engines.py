@@ -200,15 +200,13 @@ def test_hybrid_split_matches_jax_oracle(case, form, monkeypatch):
     pts, scalars, pw, sw, want = case
     P, S = (pw, sw) if form == "wire" else (pts, scalars)
     shares = []
-    if form == "wire":
-        for mod, name in ((cpu_engine, "msm_wire"), (gpu_engine, "msm_affine_wire")):
-            fn = getattr(mod, name)
-            monkeypatch.setattr(mod, name, lambda p, *a, _fn=fn, _n=name: shares.append(
-                (_n, len(p))) or _fn(p, *a))
+    for mod, name in ((cpu_engine, "msm_wire"), (gpu_engine, "msm_affine_wire")):
+        fn = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda p, *a, _fn=fn, _n=name: shares.append(
+            (_n, len(p))) or _fn(p, *a))
     got = tm.compute_msm(P, S, config=MSMConfig(**SPLIT), device="cpu", engine="hybrid")
     assert xy(got) == want
-    if form == "wire":
-        assert sorted(shares) == [("msm_affine_wire", 72), ("msm_wire", 24)]
+    assert sorted(shares) == [("msm_affine_wire", 72), ("msm_wire", 24)]  # lists as wire rows
 
 
 @pytest.mark.parametrize("form", ["wire", "list"])
@@ -221,14 +219,25 @@ def test_hybrid_cpu_only_matches_jax_hybrid(case, form, jax_native):
     assert xy(got) == xy(ref) == want
 
 
-def test_hybrid_wire_checks_z(case):
-    _, _, pw, sw, _ = case
+def test_hybrid_wire_inputs_are_checked_at_the_api(case, monkeypatch):
+    """The hybrid checks nothing itself: the API's check rejects rows with
+    z != 1, which reach the hybrid marshalled, with z == 1, and give the
+    same MSM; a length mismatch raises in the API."""
+    _, _, pw, sw, want = case
     bad = pw.copy()
     bad[3, 31] = 2
-    with pytest.raises(ValueError, match="z == 1"):
-        hybrid_engine.msm_affine_wire(bad, sw, MSMConfig(**SPLIT), torch.device("cpu"))
+    assert tm.api._wire_inputs(bad, sw) is None
+    seen = []
+    monkeypatch.setattr(hybrid_engine, "msm_affine_wire",
+                        lambda p, *a, _f=hybrid_engine.msm_affine_wire: (seen.append(p), _f(p, *a))[1])
+    z_not_one = fixtures.wire_points(scaled(fixtures.distinct_points_fast(96, seed=21), seed=24))
+    assert tm.compute_msm(z_not_one, sw, config=MSMConfig(**SPLIT), device="cpu", engine="hybrid") == \
+        tm.AffinePoint(*want)
+    assert len(seen) == 1
+    np.testing.assert_array_equal(seen[0], pw)
     with pytest.raises(ValueError, match="mismatch"):
-        hybrid_engine.msm_affine_wire(pw, sw[:-1], MSMConfig(**SPLIT), torch.device("cpu"))
+        tm.compute_msm(pw, sw[:-1], config=MSMConfig(**SPLIT), device="cpu", engine="hybrid")
+    assert len(seen) == 1
 
 
 # ---- routing ---------------------------------------------------------------

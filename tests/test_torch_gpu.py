@@ -350,15 +350,16 @@ def test_device_affine_through_the_stage_graphs_on_card(cuda):
 
 @pytest.mark.parametrize("device_affine", [False, True])
 def test_list_input_on_card_matches_oracle(cuda, device_affine):
-    """Lists take the planes path: `to_niels`, never a wire conversion."""
+    """Lists are marshalled to wire rows by the API and take the wire road:
+    one `to_niels_xy_rows` a batch, never `to_niels` or `to_niels_xy`."""
     pts = fixtures.distinct_points_fast(48, seed=53)
     scalars = fixtures.random_scalars(48, seed=54)
     pk.reset_launch_counts()
     got = compute_msm(pts, scalars, device=cuda, config=MSMConfig(
         window_size=8, n_chunks=4, chunk_len=4, device_affine=device_affine))
     assert (got.x, got.y) == curve.to_affine(msm.msm(pts, scalars, 8))
-    assert pk.launches["to_niels"] == 3
-    assert pk.launches["to_niels_xy_rows"] == pk.launches["to_niels_xy"] == 0
+    assert pk.launches["to_niels_xy_rows"] == 3
+    assert pk.launches["to_niels"] == pk.launches["to_niels_xy"] == 0
 
 
 def test_msm_plan_on_card_matches_oracle(cuda):
@@ -571,7 +572,7 @@ def _pinned(arr):
     return planes_from_numpy(arr).pin_memory()
 
 
-def _signed_scalar_rows(rng, m):
+def _signed_scalars_be(rng, m):
     """[m, 8] BE scalar rows below 2^253 (signed digits apply)."""
     sc = rng.integers(0, 1 << 32, size=(m, 8), dtype=np.uint32)
     sc[:, 0] &= (1 << 29) - 1
@@ -591,7 +592,7 @@ def _stage_cases(shape, rng, dev):
     with cache.eager():
         if shape == "wire":
             xy = [_pinned(raw_xy_rows(rng, M)) for _ in range(2)]
-            sc = [_pinned(_signed_scalar_rows(rng, M)) for _ in range(2)]
+            sc = [_pinned(_signed_scalars_be(rng, M)) for _ in range(2)]
             rows = [pk.to_niels_xy_rows(x.to(dev)) for x in xy]
             c1 = gpu_engine._call_stage("wire_batch" + suffix, gpu_engine._wire_batch_impl, static,
                                         xy[0], sc[0], carry)
@@ -604,7 +605,7 @@ def _stage_cases(shape, rng, dev):
             ]
         else:
             planes = [planes_from_numpy(rand_planes(rng, (3,), M), dev) for _ in range(2)]
-            words = [planes_from_numpy(_signed_scalar_rows(rng, M)[:, ::-1].T, dev) for _ in range(2)]
+            words = [planes_from_numpy(_signed_scalars_be(rng, M)[:, ::-1].T, dev) for _ in range(2)]
             c1 = gpu_engine._batch_planes_impl(planes[0], words[0], carry, **static)
             cases = [("batch_planes" + suffix, gpu_engine._batch_planes_impl, static,
                       [(planes[0], words[0], carry), (planes[1], words[1], c1)])]
@@ -633,7 +634,7 @@ def test_stage_replays_equal_eager_runs_on_card(cuda, shape):
 
 def test_queued_jobs_each_return_their_own_result_on_card(cuda):
     """Three jobs with distinct scalars queued before any is fetched, on the
-    wire path, the plan and the planes path: a replay writes into its
+    wire path, the plan and lists marshalled to wire rows: a replay writes into its
     graph's own outputs, so each job's window sums are cloned right after
     its finish. Each result equals the job's eager call."""
     n, cfg = 1 << 12, MSMConfig(window_size=10, n_chunks=64, chunk_len=16)  # four batches
@@ -648,7 +649,8 @@ def test_queued_jobs_each_return_their_own_result_on_card(cuda):
     for _ in range(2):  # the first round captures, the second only replays
         assert gpu_engine.msm_affine_batch_wire([(pw, s) for s in jobs_be], cfg, cuda) == want
         assert gpu_engine.WirePlan(pw, cfg, cuda).msm_affine_batch(jobs_be) == want
-        assert gpu_engine.msm_affine_batch(list(zip([pts] * 3, jobs)), cfg, cuda) == want
+        got = compute_msm_batch([pts, list(pts), list(pts)], jobs, config=cfg, device=cuda)
+        assert [(r.x, r.y) for r in got] == want
     assert cache.stats()["replays"] > 0
 
 

@@ -68,8 +68,8 @@ def test_compute_msm_several_batches(case, cfg):
 
 
 def test_list_inputs_and_z_not_one(case):
-    """Lists, and wire rows with z != 1, take the planes path, where the
-    host normalizes z."""
+    """Lists, and wire rows with z != 1, are marshalled by the API to wire
+    rows, the host normalizing z."""
     pts, scalars, pw, sw, want = case
     got = tm.compute_msm(pts[:37], scalars[:37], config=CFG, device="cpu")
     assert (got.x, got.y) == joc.to_affine(jmsm.msm(pts[:37], scalars[:37], 8))

@@ -116,14 +116,19 @@ def test_bases_are_converted_once(case, monkeypatch):
 
 
 def test_plan_input_checks(case, monkeypatch):
-    _, _, pw, sws, want = case
-    plan = gpu_engine.WirePlan(pw, CFG, "cpu")
-    with pytest.raises(ValueError, match="13 bases"):
-        plan.dispatch(sws[0][:-1])
+    _, jobs, pw, sws, want = case
+    plan = tm.MSMPlan(pw, config=CFG, device="cpu")
+    for short in (sws[0][:-1], jobs[0][:-1]):
+        with pytest.raises(ValueError, match="13 bases"):
+            plan.msm(short)
     bad = pw.copy()
-    bad[2, 31] = 2
-    with pytest.raises(ValueError, match="z == 1"):
-        gpu_engine.WirePlan(bad, CFG, "cpu")
+    bad[2, 31] = 2  # z == 2 without scaling x, y, t: rejected by the API's check, then marshalled
+    assert api._wire_point_rows(bad) is None
+    marshalled = api._points_to_wire(api._normalize_points(bad))
+    assert (marshalled[:, 24:31] == 0).all() and (marshalled[:, 31] == 1).all()
+    np.testing.assert_array_equal(np.delete(marshalled, 2, axis=0), np.delete(pw, 2, axis=0))
+    assert torch.equal(tm.MSMPlan(bad, config=CFG, device="cpu")._plan._rows[0],
+                       gpu_engine.WirePlan(marshalled, CFG, "cpu")._rows[0])
     split = MSMConfig(window_size=8, cpu_work_ratio=0.25, n_chunks=4, chunk_len=4)
     for engine, cfg in (("oracle", CFG), ("cpu", CFG), ("naive", CFG), ("baseline", CFG),
                         ("hybrid", split)):
@@ -169,7 +174,7 @@ def test_msm_plan_marshal_matches_jax(case):
     JAX `MSMPlan` builds its plan from."""
     pts, _, pw, _, _ = case
     scaled = [ExtPoint(p.x * 3 % F.P, p.y * 3 % F.P, p.t * 3 % F.P, 3) for p in pts]
-    rows = api._points_to_wire_rows(scaled)
+    rows = api._points_to_wire(scaled)
     np.testing.assert_array_equal(rows, pw)
     seen = []
 
@@ -210,9 +215,11 @@ def test_compute_msm_batch_matches_oracle(case, kind):
 
 @pytest.mark.parametrize("kind", BATCH_KINDS)
 def test_compute_msm_batch_routes_as_jax(case, kind, monkeypatch):
-    """Which engine entry point takes the batch: the plan for one shared
-    point array, the batched wire path for wire jobs, the planes path for
-    anything else. Both packages' engines are replaced by recorders."""
+    """Which engine entry point takes the batch. JAX: the plan for one
+    shared point array, the batched wire path for wire jobs, the planes
+    path for anything else. The port: the plan for one shared point
+    object of any form, else the batched wire path, lists marshalled to
+    wire rows first. Both packages' engines are replaced by recorders."""
     points_list, scalars_list = batch_inputs(case, kind)
     n = len(points_list)
 
@@ -227,8 +234,9 @@ def test_compute_msm_batch_routes_as_jax(case, kind, monkeypatch):
         monkeypatch.setattr(engine, "WirePlan", Plan)
         monkeypatch.setattr(engine, "msm_affine_batch_wire",
                             lambda jobs, *a: (seen.append("wire"), [(0, 1)] * len(jobs))[1])
-        monkeypatch.setattr(engine, "msm_affine_batch",
-                            lambda jobs, *a: (seen.append("planes"), [(0, 1)] * len(jobs))[1])
+        if engine is te:
+            monkeypatch.setattr(engine, "msm_affine_batch",
+                                lambda jobs, *a: (seen.append("planes"), [(0, 1)] * len(jobs))[1])
 
     jseen, tseen = [], []
     recorders(te, jseen)
@@ -240,17 +248,18 @@ def test_compute_msm_batch_routes_as_jax(case, kind, monkeypatch):
     assert len(tm.compute_msm_batch(batch_inputs(case, kind)[0], scalars_list, device="cpu")) == n
     want = {"shared-bases": "plan", "distinct-arrays": "wire", "one-wire-job": "wire",
             "lists": "planes", "mixed": "planes"}[kind]
-    assert tseen == jseen == [want]
+    assert jseen == [want]
+    assert tseen == [{"lists": "plan", "mixed": "wire"}.get(kind, want)]  # [pts, pts]: one object
 
 
 def test_msm_affine_batch_queues_every_job_before_fetching(case, monkeypatch):
     pts, jobs, pw, sws, want = case
     events = []
-    for name in ("_dispatch_planes", "_dispatch_wire", "_fetch_affine"):
+    for name in ("_dispatch_wire", "_fetch_affine"):
         monkeypatch.setattr(gpu_engine, name,
                             lambda *a, _f=getattr(gpu_engine, name), _n=name: (events.append(_n), _f(*a))[1])
     dev = torch.device("cpu")
-    assert gpu_engine.msm_affine_batch([(pts, jobs[0]), (pts, jobs[1])], CFG, dev) == want[:2]
+    got = tm.compute_msm_batch([pts, list(pts)], jobs[:2], config=CFG, device="cpu")  # two list objects
+    assert xy(got) == want[:2]
     assert gpu_engine.msm_affine_batch_wire([(pw, sws[0]), (pw, sws[1])], CFG, dev) == want[:2]
-    assert events == ["_dispatch_planes"] * 2 + ["_fetch_affine"] * 2 + \
-        ["_dispatch_wire"] * 2 + ["_fetch_affine"] * 2
+    assert events == (["_dispatch_wire"] * 2 + ["_fetch_affine"] * 2) * 2

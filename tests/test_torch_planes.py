@@ -1,6 +1,7 @@
-"""The port's planes path against the JAX package's: host marshalling,
-the planes batch stage, and `compute_msm` on every input form that does
-not take the wire path (the affine finish is in test_torch_affine.py).
+"""The port's plain digit planes against the JAX package's: host
+marshalling, the planes batch stage and the device-resident entry, and
+`compute_msm` on every input form that the API marshals to wire rows
+(the affine finish is in test_torch_affine.py).
 
 The JAX stages run op by op under `jax.disable_jit()` (the same integer
 operations as the jitted stages, without minutes of XLA:CPU compile).
@@ -161,22 +162,22 @@ def test_accumulate_buckets_loops_over_batches(case):
     assert torch.equal(got, want)
 
 
-def test_device_msm_takes_host_arrays_and_device_tensors(case):
-    """numpy inputs are copied batch by batch, tensors are sliced where they
-    lie: the same window sums, here over two batches."""
+def test_device_msm_takes_device_tensors(case):
+    """Tensors are sliced where they lie, here over two batches; the same
+    lists through `compute_msm` (marshalled to wire rows) give the same
+    point."""
     pts, sc, want = case
     planes, words = gpu_engine.marshal_points(pts, N), gpu_engine.marshal_scalars(sc, N)
     kw = dict(window_size=W_, n_chunks=2, chunk_len=4, signed_digits=True)
-    a = gpu_engine._device_msm(planes, words, device="cpu", **kw)
-    b = gpu_engine._device_msm(planes_from_numpy(planes), planes_from_numpy(words), **kw)
-    assert torch.equal(a, b) and a.shape == (4, 16, 32)
-    wsums = gpu_engine.window_sums_to_points(a.numpy())
+    out = gpu_engine._device_msm(planes_from_numpy(planes), planes_from_numpy(words), **kw)
+    assert out.shape == (4, 16, 32)
+    wsums = gpu_engine.window_sums_to_points(out.numpy())
     assert joc.to_affine(jmsm.combine_windows(wsums, W_)) == want
-    host, w = gpu_engine.msm_window_sums_host(pts, sc, MSMConfig(**{**STATIC, "n_chunks": 2}), torch.device("cpu"))
-    assert w == W_ and coords(host) == coords(wsums)
+    got = tm.compute_msm(pts, sc, config=MSMConfig(**{**STATIC, "n_chunks": 2}), device="cpu")
+    assert (got.x, got.y) == want
 
 
-# ---- compute_msm on every form that takes the planes path ------------------
+# ---- compute_msm on every form that the API marshals to wire rows ----------
 
 def forms(pts, sc):
     """Input form -> (points, scalars), all of the same MSM."""
@@ -203,22 +204,23 @@ def test_normalization_matches_jax(case, form):
     jp = jax_points(p) if form == "ext-points" else p
     assert coords(api._normalize_points(p)) == coords(japi._normalize_points(jp)) == coords(pts)
     assert api._normalize_scalars(s) == japi._normalize_scalars(s) == sc
-    if isinstance(p, np.ndarray) and isinstance(s, np.ndarray):  # z != 1: not the wire path
+    if isinstance(p, np.ndarray) and isinstance(s, np.ndarray):  # z != 1: marshalled, not taken as it is
         assert api._wire_fast_path_ok(p, s) is japi._wire_fast_path_ok(p, s) is False
 
 
 @pytest.mark.parametrize("device_affine", [False, True], ids=["extended", "device-affine"])
 @pytest.mark.parametrize("form", FORMS)
 def test_compute_msm_forms_match_oracle(case, form, device_affine, monkeypatch):
-    """Every form takes the planes path (`to_niels`, never `to_niels_xy`)
-    and gives the oracle's point."""
+    """Every form is marshalled to wire rows and takes the wire road (one
+    `to_niels_xy_rows` a batch; never `to_niels` or `to_niels_xy`), and
+    gives the oracle's point."""
     pts, sc, want = case
     calls = []
-    monkeypatch.setattr(pk, "to_niels", lambda t, f=pk.to_niels: (calls.append("to_niels"), f(t))[1])
-    monkeypatch.setattr(pk, "to_niels_xy", lambda t, f=pk.to_niels_xy: (calls.append("xy"), f(t))[1])
+    for name in ("to_niels", "to_niels_xy", "to_niels_xy_rows"):
+        monkeypatch.setattr(pk, name, lambda t, _f=getattr(pk, name), _n=name: (calls.append(_n), _f(t))[1])
     p, s = forms(pts, sc)[form]
     got = tm.compute_msm(p, s, config=MSMConfig(device_affine=device_affine, **STATIC), device="cpu")
-    assert (got.x, got.y) == want and calls == ["to_niels"]
+    assert (got.x, got.y) == want and calls == ["to_niels_xy_rows"]
 
 
 def test_xy_tuples(case):
@@ -229,8 +231,9 @@ def test_xy_tuples(case):
 
 
 def test_compute_msm_lists_match_jax(case):
-    """The JAX `compute_msm` on the planes path, op by op, against the
-    port's: one affine point, equal to the oracle's. (The JAX package
+    """The JAX `compute_msm` on its planes path, op by op, against the
+    port's on the marshalled wire rows: one affine point, equal to the
+    oracle's. (The JAX package
     normalizes every other form to these lists, as the port does:
     test_normalization_matches_jax.)"""
     pts, sc, want = case

@@ -23,7 +23,7 @@ import torch
 from webgpu_msm_tpu import config as jconfig
 from webgpu_msm_tpu.engines import tpu_engine as te
 
-from webgpu_msm_tpu_torch import MSMConfig
+from webgpu_msm_tpu_torch import MSMConfig, api, compute_msm
 from webgpu_msm_tpu_torch.engines import gpu_engine
 from webgpu_msm_tpu_torch.ops.kernels import padd_kernels as pk
 from webgpu_msm_tpu_torch.utils import cache, convert, fixtures, trace
@@ -59,24 +59,23 @@ def dispatch_both(path, signed, affine, monkeypatch):
     elif path == "plan":
         te.WirePlan(pw, jcfg).dispatch(sw)
         gpu_engine.WirePlan(pw, cfg, CPU).dispatch(sw)
-    else:  # the planes path, from host arrays or from tensors already on the device
-        pad = 48
-        planes, words = gpu_engine.marshal_points(pts, pad), gpu_engine.marshal_scalars(scalars, pad)
+    elif path == "lists":  # marshalled by the API to the rows the JAX wire path takes
+        te._dispatch_wire(api._points_to_wire(pts), sw, jcfg)
+        monkeypatch.setattr(gpu_engine, "_fetch_affine", lambda out, w: (0, 1))
+        compute_msm(pts, scalars, config=cfg, device=CPU)
+    else:  # plain planes already on the device
+        import jax.numpy as jnp
+        planes, words = gpu_engine.marshal_points(pts, 48), gpu_engine.marshal_scalars(scalars, 48)
         kw = dict(signed_digits=signed, device_affine=affine, **STATIC)
-        if path == "planes":
-            te._device_msm(planes, words, **kw)
-            gpu_engine._device_msm(planes, words, device=CPU, **kw)
-        else:
-            import jax.numpy as jnp
-            te._device_msm(jnp.asarray(planes), jnp.asarray(words), **kw)
-            gpu_engine._device_msm(torch.from_numpy(planes.view(np.int32)),
-                                   torch.from_numpy(words.view(np.int32)), **kw)
+        te._device_msm(jnp.asarray(planes), jnp.asarray(words), **kw)
+        gpu_engine._device_msm(torch.from_numpy(planes.view(np.int32)),
+                               torch.from_numpy(words.view(np.int32)), **kw)
     return calls
 
 
 @pytest.mark.parametrize("affine", [False, True], ids=["finish", "device_affine"])
 @pytest.mark.parametrize("signed", [True, False])
-@pytest.mark.parametrize("path", ["wire", "plan", "planes", "resident"])
+@pytest.mark.parametrize("path", ["wire", "plan", "lists", "resident"])
 def test_stage_names_and_shapes_equal_the_jax_engine(path, signed, affine, monkeypatch):
     calls = dispatch_both(path, signed, affine, monkeypatch)
     jax_calls, port_calls = calls["jax"], calls["port"]
@@ -85,7 +84,7 @@ def test_stage_names_and_shapes_equal_the_jax_engine(path, signed, affine, monke
     for (*_, jdt), (*_, pdt) in zip(jax_calls, port_calls):
         assert jdt == ["uint32"] * len(jdt) and pdt == ["int32"] * len(pdt)
     s = int(signed)
-    batch = {"wire": "wire_batch", "plan": "fixed_batch"}.get(path, "batch_planes")
+    batch = {"plan": "fixed_batch", "resident": "batch_planes"}.get(path, "wire_batch")
     want = (["plan_niels_m16"] * 3 if path == "plan" else []) + [f"{batch}_w8_c4x4_s{s}"] * 3
     finish = "finish_affine" if affine else "finish"
     assert [c[0] for c in port_calls] == want + [f"{finish}_w8_s{s}"]

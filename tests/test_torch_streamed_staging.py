@@ -186,16 +186,18 @@ def test_unsigned_digits_test_nothing_and_requeue_nothing(clean_trace, path, mon
 
 @pytest.mark.parametrize("path", ["wire", "plan"])
 def test_a_length_mismatch_raises_before_any_write_or_stage(clean_trace, path, monkeypatch):
+    """The API checks the row counts (the engines take its rows as they
+    are): a short scalar array raises there, before anything is staged."""
     inputs = input_sets(2, path)
     s = inputs.sets[0]
-    plan = gpu_engine.WirePlan(s.points, CFG, "cpu") if path == "plan" else None
+    plan = MSMPlan(s.points, config=CFG, device="cpu") if path == "plan" else None
     log = event_log(monkeypatch)
     trace.reset()
     with pytest.raises(ValueError, match="mismatch|plan holds"):
         if path == "wire":
-            gpu_engine._dispatch_wire(s.points, s.scalars[:-1], CFG, gpu_engine.resolve_device("cpu"))
+            compute_msm(s.points, s.scalars[:-1], config=CFG, device="cpu")
         else:
-            plan.dispatch(s.scalars[:-1])
+            plan.msm(s.scalars[:-1])
     assert log == [] and trace.counts() == dict.fromkeys(trace.COUNTERS, 0)
 
 

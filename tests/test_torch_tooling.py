@@ -77,25 +77,27 @@ def test_profiler_trace_writes_a_chrome_trace(tmp_path):
 
 
 CALL_SPANS = {  # the program's spans of one call at n 16, w 8, one batch of 4 x 4, in the order they end
-    "wire": ["check inputs (wire)", "check inputs (wire)", "slice/pad inputs (wire)",
+    "wire": ["check inputs (wire)", "slice/pad inputs (wire)",
              "stage wire_batch_w8_c4x4_s1: eager", "stage finish_w8_s1: eager", "queue stages",
              "fetch", "combine windows"],
-    "planes": ["convert inputs", "stage batch_planes_w8_c4x4_s1: eager", "stage finish_w8_s1: eager",
-               "device msm", "combine windows"],
-    "plan": ["check inputs (wire)", "check inputs (wire)", "stage scalars (plan)",
+    # lists fail the wire check, are marshalled to wire rows, then take the same road
+    "lists": ["check inputs (wire)", "convert inputs", "slice/pad inputs (wire)",
+              "stage wire_batch_w8_c4x4_s1: eager", "stage finish_w8_s1: eager", "queue stages",
+              "fetch", "combine windows"],
+    "plan": ["check inputs (wire)", "stage scalars (plan)",
              "stage fixed_batch_w8_c4x4_s1: eager", "stage finish_w8_s1: eager", "queue stages",
              "fetch", "combine windows"],
     "batch": (["check inputs (wire)"] * 2
-              + ["check inputs (wire)", "stage scalars (plan)", "stage fixed_batch_w8_c4x4_s1: eager",
+              + ["stage scalars (plan)", "stage fixed_batch_w8_c4x4_s1: eager",
                  "stage finish_w8_s1: eager", "queue stages"] * 2
               + ["fetch", "combine windows"] * 2),
     # two batches of 2 x 4: each batch's rows are written, then its stage is
     # queued, in turns; the first queue makes the carry, the last the finish
-    "wire-2-batches": ["check inputs (wire)", "check inputs (wire)",
+    "wire-2-batches": ["check inputs (wire)",
                        "slice/pad inputs (wire)", "stage wire_batch_w8_c2x4_s1: eager", "queue stages",
                        "slice/pad inputs (wire)", "stage wire_batch_w8_c2x4_s1: eager",
                        "stage finish_w8_s1: eager", "queue stages", "fetch", "combine windows"],
-    "plan-2-batches": ["check inputs (wire)", "check inputs (wire)",
+    "plan-2-batches": ["check inputs (wire)",
                        "stage scalars (plan)", "stage fixed_batch_w8_c2x4_s1: eager", "queue stages",
                        "stage scalars (plan)", "stage fixed_batch_w8_c2x4_s1: eager",
                        "stage finish_w8_s1: eager", "queue stages", "fetch", "combine windows"],
@@ -104,8 +106,9 @@ CALL_COUNTS = {  # the counters after the same call: 64 bytes a point's x||y row
     path: {trace.STAGED_BYTES: staged, trace.BATCH_STAGES: batches, trace.BATCHES_STREAMED: streamed,
            trace.SIGNED_REQUEUES: 0}
     for path, (staged, batches, streamed) in {
-        "wire": (16 * 96, 1, 0), "planes": (0, 1, 0), "plan": (16 * 32, 1, 0), "batch": (2 * 16 * 32, 2, 0),
-        "wire-2-batches": (16 * 96, 2, 1), "plan-2-batches": (16 * 32, 2, 1)}.items()
+        "wire": (16 * 96, 1, 0), "lists": (16 * 96, 1, 0), "plan": (16 * 32, 1, 0),
+        "batch": (2 * 16 * 32, 2, 0), "wire-2-batches": (16 * 96, 2, 1),
+        "plan-2-batches": (16 * 32, 2, 1)}.items()
 }
 CFG = MSMConfig(window_size=8, n_chunks=4, chunk_len=4)
 CFG_2_BATCHES = MSMConfig(window_size=8, n_chunks=2, chunk_len=4)
@@ -119,7 +122,7 @@ def call_of(path):
     path = path.removesuffix("-2-batches")
     if path == "wire":
         return lambda: [compute_msm(pw, sw, config=cfg, device="cpu")], [expected]
-    if path == "planes":
+    if path == "lists":
         points, scalars, _ = benchmark._case(16)
         return lambda: [compute_msm(points, scalars, config=cfg, device="cpu")], [expected]
     plan = MSMPlan(pw, config=cfg, device="cpu")
@@ -131,7 +134,7 @@ def call_of(path):
 @pytest.mark.parametrize("path", sorted(CALL_SPANS))
 def test_cpu_calls_record_the_jax_phases(clean_trace, path):
     """A wire call records the JAX engine's wire staging phase and the
-    port's spans around it, a list call the JAX planes phases, a plan job
+    port's spans around it, a list call the same after its marshal, a plan job
     and a two-job `msm_batch` theirs for each job (the fetches after every
     job is queued), a two-batch wire call or plan job its staging and
     queueing spans in turns; then the counters that are not zero, at their

@@ -1,7 +1,8 @@
 """The wire input stage: `to_niels_xy_rows` (wire x||y rows to the scan's
 packed Niels rows in one kernel) against the JAX package's `_wire_niels`,
-and the host stage around it: one z == 1 check a call, x||y and scalars
-written once into (pinned) host tensors with an identity / zero tail.
+and the host stage around it: one z == 1 check a call, in the API, x||y
+and scalars written once into (pinned) host tensors with an identity /
+zero tail.
 
 Every comparison is exact, digit for digit. The JAX side runs two eager
 calls, of 64 and 32 rows.
@@ -15,7 +16,7 @@ from webgpu_msm_tpu.engines import tpu_engine as te
 from webgpu_msm_tpu.oracle import field as F
 
 import webgpu_msm_tpu_torch as tm
-from webgpu_msm_tpu_torch import MSMConfig
+from webgpu_msm_tpu_torch import MSMConfig, api
 from webgpu_msm_tpu_torch.engines import gpu_engine
 from webgpu_msm_tpu_torch.ops import pippenger
 from webgpu_msm_tpu_torch.ops.kernels import padd_kernels as pk
@@ -163,30 +164,33 @@ def z_not_one(pw: np.ndarray) -> np.ndarray:
     return bad
 
 
-def test_engine_entry_points_still_check_z(case):
+def test_api_check_rejects_z_not_one(case):
+    """The API's check is the only one: it rejects rows with z != 1 and
+    rows with z's 1 in another word, so they never reach a wire stage
+    unmarshalled; the engines take the rows it passes without a z test."""
     _, _, pw, sw, _ = case
-    cpu = torch.device("cpu")
     moved = pw.copy()
     moved[0, 31], moved[0, 24] = 0, 1  # z's 1 in another word of the row
     for bad in (z_not_one(pw), moved):
-        with pytest.raises(ValueError, match="z == 1"):
-            gpu_engine.msm_affine_wire(bad, sw, CFG, cpu)
-        with pytest.raises(ValueError, match="z == 1"):
-            gpu_engine.WirePlan(bad, CFG, cpu)
-        with pytest.raises(ValueError, match="z == 1"):
-            gpu_engine.msm_affine_batch_wire([(pw, sw), (bad, sw)], CFG, cpu)
+        assert api._wire_point_rows(bad) is None
+        assert api._wire_inputs(bad, sw) is None
+        assert not api._wire_fast_path_ok(bad, sw)
+    assert np.shares_memory(api._wire_inputs(pw, sw)[0], pw)  # taken as it is, no copy
 
 
-def test_z_not_one_takes_the_planes_path(case, monkeypatch):
+def test_z_not_one_is_marshalled_on_the_host(case, monkeypatch):
+    """Rows with z != 1 fail the API's check, are normalized on the host
+    and reach the engine's one wire entry as marshalled rows with z == 1."""
     _, _, pw, sw, want = case
-    routes = []
-    for name in ("msm_affine", "msm_affine_wire"):
-        monkeypatch.setattr(gpu_engine, name,
-                            lambda *a, _f=getattr(gpu_engine, name), _n=name: (routes.append(_n), _f(*a))[1])
-    got = tm.compute_msm(z_not_one(pw), sw, config=CFG, device="cpu")
-    assert (got.x, got.y) == want and routes == ["msm_affine"]
+    bad = z_not_one(pw)
+    seen = []
+    monkeypatch.setattr(gpu_engine, "msm_affine_wire",
+                        lambda p, *a, _f=gpu_engine.msm_affine_wire: (seen.append(p), _f(p, *a))[1])
+    got = tm.compute_msm(bad, sw, config=CFG, device="cpu")
+    assert (got.x, got.y) == want and len(seen) == 1
+    np.testing.assert_array_equal(seen[0], pw)  # z normalized to 1 on the host
     got = tm.compute_msm(pw, sw, config=CFG, device="cpu")
-    assert (got.x, got.y) == want and routes == ["msm_affine", "msm_affine_wire"]
+    assert (got.x, got.y) == want and len(seen) == 2 and np.shares_memory(seen[1], pw)
 
 
 def test_wide_and_foreign_integer_arrays(case):
@@ -264,23 +268,33 @@ def test_z_is_one_equals_the_plain_test(n, bad_rows, bad_word, path, monkeypatch
 
 
 @pytest.mark.parametrize("entry", ["wire", "fortran-order", "int64", "batch-shared"])
-def test_z_test_stats_count_calls_rows_and_copies(case, entry):
-    """One call and n rows a call; a point array that is not contiguous u32
-    is copied first and counted; a point array shared by the jobs of a
-    batch is tested once."""
+def test_z_test_runs_once_a_call_and_copies_only_foreign_arrays(case, entry, monkeypatch):
+    """One z test a call, or a point array shared by the jobs of a batch,
+    over its n rows; a point array is copied first only when it is not
+    contiguous u32 (Fortran order, or a wider integer type)."""
     _, _, pw, sw, want = case
-    gpu_engine.reset_z_test_stats()
+    tests, copies = [], []
+    monkeypatch.setattr(gpu_engine, "z_is_one",
+                        lambda rows, f=gpu_engine.z_is_one: (tests.append(rows.shape[0]), f(rows))[1])
+    contiguous = np.ascontiguousarray
+
+    def counted(a, *args, **kwargs):
+        out = contiguous(a, *args, **kwargs)
+        if out.shape[-1:] == (32,) and not np.may_share_memory(out, points):
+            copies.append(out.shape[0])
+        return out
+
+    monkeypatch.setattr(np, "ascontiguousarray", counted)
     if entry == "batch-shared":
+        points = pw
         got = tm.compute_msm_batch([pw, pw], [sw, sw], config=CFG, device="cpu")
     else:
         points = {"wire": pw, "fortran-order": np.asfortranarray(pw),
                   "int64": pw.astype(np.int64)}[entry]
         got = [tm.compute_msm(points, sw, config=CFG, device="cpu")]
     assert [(r.x, r.y) for r in got] == [want] * len(got)
-    copies = int(entry in ("fortran-order", "int64"))
-    assert gpu_engine.z_test_stats() == {"calls": 1, "rows": N, "copies": copies}
-    gpu_engine.reset_z_test_stats()
-    assert gpu_engine.z_test_stats() == {"calls": 0, "rows": 0, "copies": 0}
+    assert tests == [N]
+    assert copies == ([N] if entry in ("fortran-order", "int64") else [])
 
 
 def test_plan_from_jax_niels_planes_runs_the_same_jobs(case):

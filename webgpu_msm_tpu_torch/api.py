@@ -17,10 +17,13 @@ Engines (`engine=`), routed as the JAX `compute_msm` routes its own:
 - "oracle": the pure-Python serial Pippenger;
 - "cpu": the native C++ engine.
 
-Two numpy arrays that meet the wire path's preconditions (whole rows,
-z == 1) take the wire path of the "gpu" and "hybrid" engines; everything
-else is normalized to `ExtPoint`s and ints. "oracle" and "cpu" compute on
-the host and resolve no device. The others run on `device`: the GPU when
+Every job bound for the "gpu" and "hybrid" engines enters them as wire
+rows, decided here once a job: two numpy arrays that pass `_wire_inputs`
+(whole rows in the u32 range, z == 1, as many scalar rows as point rows)
+are taken as they are; any other job is normalized to `ExtPoint`s and ints
+and marshalled on the host to such rows (`_job_rows`). The other engines
+take the normalized lists. "oracle" and "cpu" compute on the host and
+resolve no device. The others run on `device`: the GPU when
 none is given (an error without one), plain PyTorch only for device="cpu".
 """
 from __future__ import annotations
@@ -64,32 +67,39 @@ def _gpu_only(engine: str, config: MSMConfig) -> bool:
     return engine == "gpu" and config.cpu_work_ratio == 0
 
 
+def _u32_rows(arr: np.ndarray, width: int, what: str) -> np.ndarray:
+    """An integer array as contiguous [n, width] u32 rows (no copy when it
+    is contiguous u32). Integer arrays wider than u32 are range-checked: a
+    word of 2^32 or more raises instead of being cut."""
+    return np.ascontiguousarray(convert.as_u32_array(arr, what)).reshape(-1, width)
+
+
 def _wire_point_rows(points: np.ndarray) -> Optional[np.ndarray]:
     """The point array as contiguous [n, 32] u32 rows if it meets the wire
-    path's preconditions on the point side (an integer array of whole rows
-    with z == 1), else None. This is the one z check of a call: the engine
-    takes the rows without reading them for it again."""
+    rows' preconditions on the point side (an integer array of whole rows
+    with z == 1), else None."""
     if not np.issubdtype(points.dtype, np.integer):
         return None
     if points.size == 0 or points.size % 32 != 0:
         return None
-    rows = gpu_engine.as_wire_rows(points)
+    rows = _u32_rows(points, 32, "wire points")
     return rows if gpu_engine.z_is_one(rows) else None
 
 
-def _wire_inputs(points: np.ndarray, scalars: np.ndarray, rows: Optional[np.ndarray] = None):
-    """(point rows, [n, 8] scalar rows) if the two arrays meet the wire
-    path's preconditions, else None; checked up front so that inside the
-    path any error is a real fault. Integer arrays wider than u32 are
-    range-checked: a word of 2^32 or more raises instead of being cut.
-    `rows`: the point array's rows, already checked."""
+def _wire_inputs(points: Any, scalars: Any, rows: Optional[np.ndarray] = None):
+    """(point rows, [n, 8] scalar rows) if the job is two integer arrays
+    that meet the wire rows' preconditions, else None. This is the one
+    check of wire input: the engines take its rows without reading them
+    for it again. `rows`: the job's point rows, made already for an
+    earlier job of a batch that passes the same point object."""
     with trace.span("check inputs (wire)"):
-        if scalars.size != points.size // 4:  # n*8 scalar words against n*32 point words
+        if not isinstance(scalars, np.ndarray):
             return None
-        rows = _wire_point_rows(points) if rows is None else rows
-        if rows is None:
+        if rows is None and isinstance(points, np.ndarray) and scalars.size * 4 == points.size:
+            rows = _wire_point_rows(points)
+        if rows is None or scalars.size != rows.shape[0] * 8:
             return None
-        return rows, convert.as_u32_array(scalars, "wire scalars").reshape(-1, 8)
+        return rows, _u32_rows(scalars, 8, "wire scalars")
 
 
 def _wire_fast_path_ok(points: np.ndarray, scalars: np.ndarray) -> bool:
@@ -126,6 +136,23 @@ def _normalize_points(points: Any) -> list[ExtPoint]:
     return out
 
 
+def _job_rows(points: Any, scalars: Any, rows: Optional[np.ndarray] = None):
+    """One job as the wire rows by which it enters the "gpu" and "hybrid"
+    engines: the arrays as they are if they pass `_wire_inputs`, else the
+    job normalized and marshalled on the host (z normalized, coordinates
+    reduced mod p). `rows`: as for `_wire_inputs`."""
+    wire = _wire_inputs(points, scalars, rows)
+    if wire is not None:
+        return wire
+    with trace.span("convert inputs"):
+        if rows is None:
+            rows = _points_to_wire(_normalize_points(points))
+        sc = _normalize_scalars(scalars)
+        if rows.shape[0] != len(sc):
+            raise ValueError(f"points/scalars length mismatch: {rows.shape[0]} vs {len(sc)}")
+        return rows, convert.bigints_to_u32_be(sc)
+
+
 def compute_msm(
     points: Any,
     scalars: Any,
@@ -141,13 +168,12 @@ def compute_msm(
     config = config or MSMConfig()
     engine, dev = _resolve(engine, device)
 
-    wire = (_wire_inputs(points, scalars)
-            if engine in ("gpu", "hybrid") and isinstance(points, np.ndarray)
-            and isinstance(scalars, np.ndarray) else None)
-    if wire is not None:  # z checked
-        if _gpu_only(engine, config):
-            return AffinePoint(*gpu_engine.msm_affine_wire(*wire, config, dev, True))
-        return AffinePoint(*hybrid_engine.msm_affine_wire(*wire, config, dev, True))
+    if engine in ("gpu", "hybrid"):
+        rows, sc = _job_rows(points, scalars)
+        if not rows.shape[0]:
+            return AffinePoint(0, 1)
+        entry = gpu_engine.msm_affine_wire if _gpu_only(engine, config) else hybrid_engine.msm_affine_wire
+        return AffinePoint(*entry(rows, sc, config, dev))
 
     pts = _normalize_points(points)
     sc = _normalize_scalars(scalars)
@@ -163,11 +189,7 @@ def compute_msm(
         return AffinePoint(*cpu_engine.msm_affine(pts, sc, config))
     if engine == "naive":
         return AffinePoint(*naive_engine.msm_affine(pts, sc, config, dev))
-    if engine == "baseline":
-        return AffinePoint(*baseline_engine.msm_affine(pts, sc, config, dev))
-    if _gpu_only(engine, config):
-        return AffinePoint(*gpu_engine.msm_affine(pts, sc, config, dev))
-    return AffinePoint(*hybrid_engine.msm_affine(pts, sc, config, dev))
+    return AffinePoint(*baseline_engine.msm_affine(pts, sc, config, dev))
 
 
 def compute_msm_batch(
@@ -178,14 +200,14 @@ def compute_msm_batch(
     engine: Optional[str] = None,
 ) -> list[AffinePoint]:
     """Many MSMs, the prover's workload: every job's device work is queued
-    before any result is fetched, so the host's marshalling of one job
+    before any result is fetched, so the host's staging of one job
     overlaps the device's work on the one before.
 
-    When every job is wire-format ([n, 32] / [n, 8] arrays, z == 1) the
-    batch runs on the wire path with no per-point Python conversion; when,
-    besides, every job passes the same point array object, the bases are
-    copied and converted once (a `WirePlan`) and each job streams only its
-    scalars. Otherwise each job is normalized and takes the planes path.
+    Each job becomes wire rows first, as in `compute_msm`; a point object
+    that several jobs pass is checked or marshalled once. When every job
+    passes the same point object, the bases are copied and converted once
+    (a `WirePlan`) and each job streams only its scalars; otherwise each
+    job streams its own rows.
 
     The queued dispatch is the GPU engine's: any other engine, or a
     co-compute split (`cpu_work_ratio` > 0), runs job by job through
@@ -202,39 +224,19 @@ def compute_msm_batch(
         return [compute_msm(p, s, config=config, device=dev, engine=engine)
                 for p, s in zip(points_list, scalars_list)]
 
-    wire = _wire_jobs(points_list, scalars_list)
-    if wire:
-        if len(wire) > 1 and all(p is points_list[0] for p in points_list):
-            plan = gpu_engine.WirePlan(wire[0][0], config, dev, True)  # z checked
-            results = plan.msm_affine_batch([sc for _, sc in wire])
-        else:
-            results = gpu_engine.msm_affine_batch_wire(wire, config, dev, True)
+    jobs, made = [], {}
+    for p, s in zip(points_list, scalars_list):
+        jobs.append(_job_rows(p, s, made.get(id(p))))
+        made[id(p)] = jobs[-1][0]
+    if len(jobs) > 1 and all(p is points_list[0] for p in points_list):
+        plan = gpu_engine.WirePlan(jobs[0][0], config, dev)
+        results = plan.msm_affine_batch([sc for _, sc in jobs])
     else:
-        jobs = [
-            (_normalize_points(p), _normalize_scalars(s))
-            for p, s in zip(points_list, scalars_list)
-        ]
-        results = gpu_engine.msm_affine_batch(jobs, config, dev)
+        results = gpu_engine.msm_affine_batch_wire(jobs, config, dev)
     return [AffinePoint(x, y) for x, y in results]
 
 
-def _wire_jobs(points_list: Sequence[Any], scalars_list: Sequence[Any]) -> Optional[list]:
-    """Each job's `_wire_inputs` if every job meets the wire path's
-    preconditions, else None. A point array that several jobs share is
-    checked once."""
-    jobs, checked = [], {}
-    for p, s in zip(points_list, scalars_list):
-        if not (isinstance(p, np.ndarray) and isinstance(s, np.ndarray)):
-            return None
-        job = _wire_inputs(p, s, checked.get(id(p)))
-        if job is None:
-            return None
-        checked[id(p)] = job[0]
-        jobs.append(job)
-    return jobs
-
-
-def _points_to_wire_rows(points: list[ExtPoint]) -> np.ndarray:
+def _points_to_wire(points: list[ExtPoint]) -> np.ndarray:
     """Extended points -> [n, 32] BE u32 wire rows with z == 1."""
     rows = np.zeros((len(points), 32), dtype=np.uint32)
     for i, coord in enumerate(gpu_engine.affine_xyt(points)):
@@ -279,18 +281,22 @@ class MSMPlan:
             return
         with trace.span("check inputs (wire)"):
             rows = _wire_point_rows(points) if isinstance(points, np.ndarray) else None
-        if rows is None:
-            # one marshal on the host to wire rows (z == 1), then the same plan
-            rows = _points_to_wire_rows(_normalize_points(points))
-        self._plan = gpu_engine.WirePlan(rows, self.config, self.device, True)  # z checked
+        if rows is None:  # one marshal on the host to wire rows (z == 1), then the same plan
+            with trace.span("convert inputs"):
+                rows = _points_to_wire(_normalize_points(points))
+        self._plan = gpu_engine.WirePlan(rows, self.config, self.device)
         self.n = self._plan.n
 
-    @staticmethod
-    def _scalars_wire(scalars: Any) -> np.ndarray:
+    def _job_scalars(self, scalars: Any) -> np.ndarray:
+        """One job's [n, 8] u32 scalar rows, one for each planned base."""
         with trace.span("check inputs (wire)"):
             if isinstance(scalars, np.ndarray):
-                return convert.as_u32_array(scalars, "wire scalars").reshape(-1, 8)
-            return convert.bigints_to_u32_be([int(s) for s in scalars])
+                sc = _u32_rows(scalars, 8, "wire scalars")
+            else:
+                sc = convert.bigints_to_u32_be(_normalize_scalars(scalars))
+            if sc.shape[0] != self.n:
+                raise ValueError(f"plan holds {self.n} bases but got {sc.shape[0]} scalars")
+            return sc
 
     def _per_call(self, scalars: Any) -> AffinePoint:
         return compute_msm(self._points, scalars, config=self.config, device=self.device,
@@ -300,12 +306,12 @@ class MSMPlan:
         """One MSM against the planned bases."""
         if self._plan is None:
             return self._per_call(scalars)
-        return AffinePoint(*self._plan.msm_affine(self._scalars_wire(scalars)))
+        return AffinePoint(*self._plan.msm_affine(self._job_scalars(scalars)))
 
     def msm_batch(self, scalars_list: Sequence[Any]) -> list[AffinePoint]:
         """Several jobs: all queued (scalar copies overlap the compute)
         before any result is fetched."""
         if self._plan is None:
             return [self._per_call(s) for s in scalars_list]
-        wire = [self._scalars_wire(s) for s in scalars_list]
+        wire = [self._job_scalars(s) for s in scalars_list]
         return [AffinePoint(x, y) for x, y in self._plan.msm_affine_batch(wire)]

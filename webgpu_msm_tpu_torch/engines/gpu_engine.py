@@ -1,20 +1,22 @@
 """GPU MSM engine: the counterpart of the JAX package's
 `engines/tpu_engine.py`.
 
-Three ways in, one device pipeline:
+Every host-fed job enters by one representation, the one the API's check
+or marshal gives it (`api._wire_inputs`, `api._job_rows`): contiguous
+[n, 32] big-endian u32 point rows with z == 1 and [n, 8] scalar rows of
+the same n. The engine trusts those rows and reads them for nothing but
+the MSM. Two ways in, one host-to-device pipeline (`_stream_job`):
 
-- the **wire path** (`msm_affine_wire`): [n, 32] / [n, 8] big-endian u32
-  rows; the host writes x||y and the scalar rows once, padded, into one
-  pinned buffer a job, a batch at a time, and queues each batch's copies
-  and stage as soon as its rows are written (`_stream_job`); the
-  `to_niels_xy_rows` kernel turns each batch's x||y rows into the scan's
-  packed Niels rows;
-- the **planes path** (`msm_affine`, `msm_affine_batch`): lists of points
-  and scalars, marshalled on the host into [3, 16, n] plain digit planes
-  and [8, n] scalar words, converted on the device with the `to_niels`
-  kernel;
+- the **wire path** (`msm_affine_wire`, `msm_affine_batch_wire`): the host
+  writes x||y and the scalar rows once, padded, into one pinned buffer a
+  job, a batch at a time, and queues each batch's copies and stage as
+  soon as its rows are written; the `to_niels_xy_rows` kernel turns each
+  batch's x||y rows into the scan's packed Niels rows;
 - the **fixed-base plan** (`WirePlan`): the bases' packed Niels rows stay
-  on the device and each job copies only its scalar rows.
+  on the device and each job streams only its scalar rows.
+
+`_device_msm` takes plain digit planes already on a device (the
+device-resident entry; no API call reaches it).
 
 Each batch stage adds its buckets into a device-resident bucket carry; one
 finish stage reduces the carry to window sums (extended, or affine with
@@ -239,7 +241,7 @@ def _padded_plan(config: MSMConfig, n: int) -> tuple[int, int, int, int]:
 
 
 # ---------------------------------------------------------------------------
-# The planes path
+# Host marshalling and the device-resident entry
 # ---------------------------------------------------------------------------
 
 
@@ -286,83 +288,27 @@ def _signed_ok(config: MSMConfig, scalar_words: np.ndarray) -> bool:
     return config.signed_digits and bool(np.all(scalar_words[7] < (1 << 29)))
 
 
-def _device_msm(points_plain, scalar_words, *, window_size, n_chunks, chunk_len,
-                signed_digits=False, device_affine=False, device=None) -> torch.Tensor:
-    """Staged MSM over [3, 16, n] plain planes and [8, n] LE scalar words,
-    n a whole number of batches. numpy inputs are copied to `device` batch
-    by batch from pinned memory, queued without waiting; tensors already on
-    a device are sliced there (device-resident inputs, called with
-    `config.resolved_window_size(n)` and `resolved_chunking(n)`: at 2^20
-    one batch, which is the whole input and is not copied). Returns the
-    finish stage's window sums on the device, without synchronizing."""
+def _device_msm(points_plain: torch.Tensor, scalar_words: torch.Tensor, *, window_size,
+                n_chunks, chunk_len, signed_digits=False, device_affine=False) -> torch.Tensor:
+    """Staged MSM over [3, 16, n] plain planes and [8, n] LE scalar words
+    (int32 bits) already on a device, n a whole number of batches: each
+    batch is sliced where the tensors lie (device-resident inputs, called
+    with `config.resolved_window_size(n)` and `resolved_chunking(n)`: at
+    2^20 one batch, which is the whole input and is not copied). Returns
+    the finish stage's window sums on the device, without synchronizing."""
     M = n_chunks * chunk_len
     n = points_plain.shape[-1]
     assert n % M == 0, (n, M)
-    host_input = isinstance(points_plain, np.ndarray)
-    device = torch.device(device) if host_input else points_plain.device
     static = dict(window_size=window_size, n_chunks=n_chunks, chunk_len=chunk_len,
                   signed_digits=signed_digits)
     bname = _batch_name("batch_planes", window_size, n_chunks, chunk_len, signed_digits)
-    carry = _identity_carry(window_size, signed_digits, device)
+    carry = _identity_carry(window_size, signed_digits, points_plain.device)
     trace.count(trace.BATCH_STAGES, n // M)
     for b in range(n // M):
         sl = slice(b * M, (b + 1) * M)
-        if host_input:  # pinned: the stage copies them to the card
-            pts_b = _host_tensor(points_plain[:, :, sl], device)
-            sc_b = _host_tensor(scalar_words[:, sl], device)
-        else:
-            pts_b = points_plain[:, :, sl].contiguous()
-            sc_b = scalar_words[:, sl].contiguous()
-        carry = _call_stage(bname, _batch_planes_impl, static, pts_b, sc_b, carry, clone=False)
+        carry = _call_stage(bname, _batch_planes_impl, static, points_plain[:, :, sl].contiguous(),
+                            scalar_words[:, sl].contiguous(), carry, clone=False)
     return _call_finish(carry, window_size, signed_digits, device_affine)
-
-
-def _dispatch_planes(points: Sequence[ExtPoint], scalars: Sequence[int], config: MSMConfig,
-                     device: torch.device):
-    """Marshal one job on the host and queue its device pipeline; returns
-    (window sums on the device, window size) without synchronizing."""
-    w, C, L, pad_to = _padded_plan(config, len(points))
-    pts = marshal_points(points, pad_to)
-    sc = marshal_scalars(scalars, pad_to)
-    out = _device_msm(
-        pts, sc, window_size=w, n_chunks=C, chunk_len=L, signed_digits=_signed_ok(config, sc),
-        device_affine=config.device_affine, device=device,
-    )
-    return out, w
-
-
-def msm_window_sums_host(points: Sequence[ExtPoint], scalars: Sequence[int],
-                         config: MSMConfig, device: torch.device):
-    """Run the device pipeline; (window sums as ExtPoints, LSB first, w).
-    Traced as the JAX engine's two phases; "device msm" ends with the
-    fetch, so it holds the device's time."""
-    w, C, L, pad_to = _padded_plan(config, len(points))
-    with trace.span("convert inputs"):
-        pts = marshal_points(points, pad_to)
-        sc = marshal_scalars(scalars, pad_to)
-    with trace.span("device msm"):
-        out = _device_msm(
-            pts, sc, window_size=w, n_chunks=C, chunk_len=L, signed_digits=_signed_ok(config, sc),
-            device_affine=config.device_affine, device=device,
-        )
-        out_host = out.cpu().numpy()
-    return window_sums_to_points(out_host), w
-
-
-def msm_affine(points: Sequence[ExtPoint], scalars: Sequence[int], config: MSMConfig,
-               device: torch.device) -> tuple[int, int]:
-    wsums, w = msm_window_sums_host(points, scalars, config, device)
-    with trace.span("combine windows"):
-        return ocurve.to_affine(combine_windows(wsums, w))
-
-
-def msm_affine_batch(jobs: Sequence[tuple[Sequence[ExtPoint], Sequence[int]]],
-                     config: MSMConfig, device: torch.device) -> list[tuple[int, int]]:
-    """Many list-input MSMs: each job's device work is queued and runs
-    while the host marshals the next job; results are fetched, and the
-    windows combined, only after every job has been queued."""
-    queued = [_dispatch_planes(points, scalars, config, device) for points, scalars in jobs]
-    return [_fetch_affine(out, w) for out, w in queued]
 
 
 # ---------------------------------------------------------------------------
@@ -383,55 +329,18 @@ _Z_ONE_T = torch.from_numpy(_Z_ONE.view(np.int64))
 # 2^18 rows, where the serial pass takes 9 ms.
 _Z_PARALLEL_ROWS = 1 << 18
 
-# How often the z test engages (`z_test_stats`).
-_z_tests = {"calls": 0, "rows": 0, "copies": 0}
-
-
-def z_test_stats() -> dict:
-    """The z test's counts since the last reset: calls, rows tested, and
-    copies, the point arrays `as_wire_rows` had to copy first because they
-    were not contiguous u32 (the traffic that misses the in-place pass)."""
-    return dict(_z_tests)
-
-
-def reset_z_test_stats() -> None:
-    _z_tests.update(calls=0, rows=0, copies=0)
-
-
-def as_wire_rows(points_be: np.ndarray) -> np.ndarray:
-    """Wire points as contiguous [n, 32] u32 rows; a wider integer array is
-    range-checked."""
-    rows = np.ascontiguousarray(convert.as_u32_array(points_be, "wire points")).reshape(-1, 32)
-    if not np.may_share_memory(rows, points_be):
-        _z_tests["copies"] += 1
-    return rows
-
 
 def z_is_one(rows: np.ndarray) -> bool:
-    """Whether every contiguous [n, 32] u32 row has z == 1: one pass over z,
+    """Whether every contiguous [n, 32] u32 row has z == 1 (the API's wire
+    check, once a call or a shared array): one pass over z,
     read in place as four u64 words a row. From `_Z_PARALLEL_ROWS` rows on
     the pass is `torch.equal`'s, one parallel region over the host's CPUs
     with no intermediate; numpy's comparison of the same strided view runs
     an inner loop of four words a row on one core."""
-    _z_tests["calls"] += 1
-    _z_tests["rows"] += rows.shape[0]
     if rows.shape[0] < _Z_PARALLEL_ROWS:
         return bool((rows.view(np.uint64)[:, 12:] == _Z_ONE).all())
     z = torch.from_numpy(rows.view(np.int64))[:, 12:]
     return torch.equal(z, _Z_ONE_T.expand(z.shape))
-
-
-def _wire_rows(points_be: np.ndarray, what: str, z_checked: bool = False) -> np.ndarray:
-    """Wire points as contiguous [n, 32] u32 rows; z must be 1, which is
-    checked here unless the caller has (`z_checked`)."""
-    rows = as_wire_rows(points_be)
-    if not (z_checked or z_is_one(rows)):
-        raise ValueError(f"{what} requires z == 1")
-    return rows
-
-
-def _scalar_rows(scalars_be: np.ndarray) -> np.ndarray:
-    return np.ascontiguousarray(convert.as_u32_array(scalars_be, "wire scalars")).reshape(-1, 8)
 
 
 def _signed_rows(scalars_be: np.ndarray) -> bool:
@@ -495,19 +404,14 @@ def _stream_job(kind: str, impl, span: str, write, sc: _Staged, *, window_size, 
 
 
 def _dispatch_wire(points_be: np.ndarray, scalars_be: np.ndarray, config: MSMConfig,
-                   device: torch.device, z_checked: bool = False):
-    """Validate wire inputs, then write them into pinned memory and queue
-    the device pipeline batch by batch (`_stream_job`); returns (window
-    sums on the device, window size) without synchronizing, so a caller
-    can queue many jobs before it fetches any."""
-    with trace.span("check inputs (wire)"):
-        rows = _wire_rows(points_be, "the wire path", z_checked)
-        scalars_be = _scalar_rows(scalars_be)
-        n = rows.shape[0]
-        if scalars_be.shape[0] != n:
-            raise ValueError(f"points/scalars length mismatch: {n} vs {scalars_be.shape[0]}")
+                   device: torch.device):
+    """Write one job's wire rows into pinned memory and queue the device
+    pipeline batch by batch (`_stream_job`); returns (window sums on the
+    device, window size) without synchronizing, so a caller can queue many
+    jobs before it fetches any. The rows are the API's, checked there."""
+    n = points_be.shape[0]
     w, C, L, pad_to = _padded_plan(config, n)
-    xy, sc = _stage_xy(rows, pad_to, device), _stage_scalars(scalars_be, pad_to, device)
+    xy, sc = _stage_xy(points_be, pad_to, device), _stage_scalars(scalars_be, pad_to, device)
     out = _stream_job(
         "wire_batch", _wire_batch_impl, "slice/pad inputs (wire)",
         lambda lo, hi: (xy.rows(lo, hi), sc.rows(lo, hi)), sc, window_size=w, n_chunks=C,
@@ -518,19 +422,17 @@ def _dispatch_wire(points_be: np.ndarray, scalars_be: np.ndarray, config: MSMCon
 
 
 def msm_affine_wire(points_be: np.ndarray, scalars_be: np.ndarray, config: MSMConfig,
-                    device: torch.device, z_checked: bool = False) -> tuple[int, int]:
-    """Wire-format MSM: [n, 32] BE point rows (z == 1), [n, 8] BE scalars.
-    `z_checked`: the caller has checked z == 1 (the API does), so the rows
-    are not read for it again."""
-    return _fetch_affine(*_dispatch_wire(points_be, scalars_be, config, device, z_checked))
+                    device: torch.device) -> tuple[int, int]:
+    """Wire-format MSM: contiguous [n, 32] u32 BE point rows with z == 1
+    and [n, 8] BE scalar rows of the same n, as the API gives them."""
+    return _fetch_affine(*_dispatch_wire(points_be, scalars_be, config, device))
 
 
 def msm_affine_batch_wire(jobs: Sequence[tuple[np.ndarray, np.ndarray]], config: MSMConfig,
-                          device: torch.device, z_checked: bool = False) -> list[tuple[int, int]]:
-    """Many wire MSMs: every job's copies and kernels are queued before any
-    result is fetched."""
-    queued = [_dispatch_wire(points_be, scalars_be, config, device, z_checked)
-              for points_be, scalars_be in jobs]
+                          device: torch.device) -> list[tuple[int, int]]:
+    """Many wire MSMs (each job's rows as for `msm_affine_wire`): every
+    job's copies and kernels are queued before any result is fetched."""
+    queued = [_dispatch_wire(points_be, scalars_be, config, device) for points_be, scalars_be in jobs]
     return [_fetch_affine(out, w) for out, w in queued]
 
 
@@ -546,20 +448,19 @@ class WirePlan:
     to the scan's packed Montgomery Niels rows (`to_niels_xy_rows`), which
     stay on the device. A job then moves only its [n, 8] scalar rows, 32
     bytes a point against the wire path's 96, and runs no conversion and no
-    packing. Batches keep the wire plan's (w, C, L). `z_checked`: the caller
-    has checked z == 1 (the API does).
+    packing. Batches keep the wire plan's (w, C, L). The bases are
+    contiguous [n, 32] u32 BE rows with z == 1, and each job's scalars
+    [n, 8] BE rows of the same n, as the API gives them.
     """
 
-    def __init__(self, points_be: np.ndarray, config: MSMConfig, device: torch.device,
-                 z_checked: bool = False):
-        rows = _wire_rows(points_be, "a fixed-base plan", z_checked)
+    def __init__(self, points_be: np.ndarray, config: MSMConfig, device: torch.device):
         self.config = config
         self.device = torch.device(device)
-        self.n = rows.shape[0]
+        self.n = points_be.shape[0]
         self.w, self.C, self.L, self.pad_to = _padded_plan(config, self.n)
         M = self.C * self.L
         with trace.span("build plan"):
-            xy_t = _stage_xy(rows, self.pad_to, self.device).rows(0, self.pad_to)
+            xy_t = _stage_xy(points_be, self.pad_to, self.device).rows(0, self.pad_to)
             # The batch on the device: a stage's device is that of its CUDA
             # tensors. Its rows [M, 24] stand for the JAX stage's Niels planes.
             self._rows = [
@@ -585,10 +486,6 @@ class WirePlan:
         """Queue one job's copies and kernels batch by batch as its scalar
         rows are written (`_stream_job`); returns (window sums on the
         device, w) without synchronizing."""
-        with trace.span("check inputs (wire)"):
-            scalars_be = _scalar_rows(scalars_be)
-            if scalars_be.shape[0] != self.n:
-                raise ValueError(f"plan holds {self.n} bases but got {scalars_be.shape[0]} scalars")
         M = self.C * self.L
         sc = _stage_scalars(scalars_be, self.pad_to, self.device)
         out = _stream_job(

@@ -33,11 +33,13 @@ to what the host was doing. With no profiler on, a span creates no range.
 `phase` stays the host clock alone: a caller that wraps it in a range of
 its own gets no second range from the program, which never calls it. No
 span nests inside another of the same label (the timers are keyed by
-label). The spans of one wire call or plan job, in order:
+label). The spans of one call or plan job, in order:
 
-- "check inputs (wire)": validation only (`api._wire_inputs`, the z
-  check; `MSMPlan._scalars_wire`; the engine's `_wire_rows` /
-  `_scalar_rows`);
+- "check inputs (wire)": validation only, once a job, in the API
+  (`api._wire_inputs`, the z check; `MSMPlan._job_scalars`); the engines
+  check nothing again;
+- "convert inputs", only for a job that fails that check: its
+  normalization and marshal to wire rows on the host (`api._job_rows`);
 - then, batch by batch, alternating and never nested:
   - "slice/pad inputs (wire)": the batch's x||y and scalar rows written
     into the job's pinned buffer (the wire path), or "stage scalars
@@ -57,9 +59,9 @@ label). The spans of one wire call or plan job, in order:
 - "combine windows": the window sums to points, their combination and
   the affine result, in Python integers.
 
-The planes path keeps the JAX engine's "convert inputs" and "device msm".
 Set-up has one span: "build plan", a `WirePlan`'s staging of the bases'
-x||y rows and their conversion to the resident rows.
+x||y rows and their conversion to the resident rows (after "check inputs
+(wire)", or "convert inputs" for bases that need the marshal).
 
 Four counters (`count`), each one integer add, say how much work the spans
 cover:
@@ -68,7 +70,8 @@ cover:
   the device (pinned on a GPU) by the wire path's and the plan's staging,
   counted a batch at a time (`gpu_engine._Staged.rows`);
 - `BATCH_STAGES`, "batch stages queued": the batch-stage calls queued
-  (`wire_batch`, `fixed_batch`, `batch_planes`), one a batch of a job, and
+  (`wire_batch`, `fixed_batch`; `batch_planes` on the device-resident
+  entry, `gpu_engine._device_msm`), one a batch of a job, and
   one more a batch of a job queued again on unsigned digits;
 - `BATCHES_STREAMED`, "batches streamed": the batches of a wire call or
   plan job queued before the job's last batch was written, k - 1 a job of
