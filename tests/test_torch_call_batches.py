@@ -46,7 +46,9 @@ def test_call_over_many_batches_matches_the_reference(input_set, path):
     r = compute_msm(points, scalars, config=CFG, device="cpu")
     assert (r.x, r.y) == want
     # each batch is queued as it is written: 40 before the last
+    # batches of 4 rows, below the copier's parallel bound: none shared with its pool
     assert trace.counts() == {trace.STAGED_BYTES: staged, trace.BATCH_STAGES: 41,
-                              trace.BATCHES_STREAMED: 40, trace.SIGNED_REQUEUES: 0}
+                              trace.BATCHES_STREAMED: 40, trace.SIGNED_REQUEUES: 0,
+                              trace.PARALLEL_BATCHES: 0}
     trace.reset()
     assert trace.counts() == dict.fromkeys(trace.COUNTERS, 0) and trace.records() == []

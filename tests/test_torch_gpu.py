@@ -787,3 +787,19 @@ def test_stage_graphs_hold_at_most_their_limit_after_a_w20_call_on_card(cuda, mo
         assert call() == want
         assert cache.stats()["bytes"] <= cache.limit(cuda)
     assert "wire_batch_w20_c64x16_s1" in cache.stats()["too_large"]
+
+
+def test_a_batch_job_is_fetched_behind_its_own_finish(cuda):
+    """A job of a batch has its window sums copied into pinned host memory
+    right behind its finish stage (`gpu_engine._HostCopy`), with work
+    queued after the copy; its fetch gives the sums. On the CPU the sums
+    are passed on as they are."""
+    out = torch.arange(4 * 16 * 20, dtype=torch.int64, device=cuda).reshape(4, 16, 20)
+    queued, w = gpu_engine._queue_fetch(out, 13)
+    assert w == 13 and isinstance(queued, gpu_engine._HostCopy) and queued.host.is_pinned()
+    later = torch.ones(1 << 24, device=cuda)
+    for _ in range(100):  # device work queued after the copy
+        later.mul_(1.0001)
+    assert torch.equal(queued.cpu(), torch.arange(4 * 16 * 20, dtype=torch.int64).reshape(4, 16, 20))
+    on_cpu = out.cpu()
+    assert gpu_engine._queue_fetch(on_cpu, 13)[0] is on_cpu

@@ -38,7 +38,8 @@ def test_plan_over_many_batches_matches_the_reference(fixed_base_inputs):
     assert plan._plan.pad_to == PAD_TO and len(plan._plan._rows) == 41
     # the build stages the bases' x || y rows (64 bytes a point) and queues no batch stage
     assert trace.counts() == {trace.STAGED_BYTES: PAD_TO * 64, trace.BATCH_STAGES: 0,
-                              trace.BATCHES_STREAMED: 0, trace.SIGNED_REQUEUES: 0}
+                              trace.BATCHES_STREAMED: 0, trace.SIGNED_REQUEUES: 0,
+                              trace.PARALLEL_BATCHES: 0}
     assert [label for label, _ in trace.records()][-2:] == ["build plan", trace.STAGED_BYTES]
 
     trace.reset()
@@ -47,7 +48,8 @@ def test_plan_over_many_batches_matches_the_reference(fixed_base_inputs):
     # each job stages its scalar rows (32 bytes a point) and queues one stage
     # a batch, each as soon as the batch is written: 40 before the job's last
     assert trace.counts() == {trace.STAGED_BYTES: JOBS * PAD_TO * 32, trace.BATCH_STAGES: JOBS * 41,
-                              trace.BATCHES_STREAMED: JOBS * 40, trace.SIGNED_REQUEUES: 0}
+                              trace.BATCHES_STREAMED: JOBS * 40, trace.SIGNED_REQUEUES: 0,
+                              trace.PARALLEL_BATCHES: 0}
     labels = [label for label, _ in trace.records()]
     assert labels.count("stage fixed_batch_w8_c2x2_s1: eager") == JOBS * 41
     assert labels[-3:] == [trace.STAGED_BYTES, trace.BATCH_STAGES, trace.BATCHES_STREAMED]

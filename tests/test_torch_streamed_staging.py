@@ -65,9 +65,13 @@ def plan_msm(plan: MSMPlan, scalars) -> list:
     return [(r.x, r.y)]
 
 
-def counted(path: str, batches: int, jobs: int, streamed: int, requeued: int, stages: int) -> dict:
+def counted(path: str, batches: int, jobs: int, streamed: int, requeued: int, stages: int,
+            parallel: int = 0) -> dict:
+    """The counters' reckoned values; batches of `BATCH` rows lie below the
+    row copier's parallel bound, so by default none is shared with its pool."""
     return {trace.STAGED_BYTES: jobs * batches * BATCH * BYTES_A_ROW[path], trace.BATCH_STAGES: stages,
-            trace.BATCHES_STREAMED: streamed, trace.SIGNED_REQUEUES: requeued}
+            trace.BATCHES_STREAMED: streamed, trace.SIGNED_REQUEUES: requeued,
+            trace.PARALLEL_BATCHES: parallel}
 
 
 @pytest.fixture

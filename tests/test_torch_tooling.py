@@ -104,7 +104,7 @@ CALL_SPANS = {  # the program's spans of one call at n 16, w 8, one batch of 4 x
 }
 CALL_COUNTS = {  # the counters after the same call: 64 bytes a point's x||y row, 32 a scalar row
     path: {trace.STAGED_BYTES: staged, trace.BATCH_STAGES: batches, trace.BATCHES_STREAMED: streamed,
-           trace.SIGNED_REQUEUES: 0}
+           trace.SIGNED_REQUEUES: 0, trace.PARALLEL_BATCHES: 0}  # 16 rows: the copier works alone
     for path, (staged, batches, streamed) in {
         "wire": (16 * 96, 1, 0), "lists": (16 * 96, 1, 0), "plan": (16 * 32, 1, 0),
         "batch": (2 * 16 * 32, 2, 0), "wire-2-batches": (16 * 96, 2, 1),

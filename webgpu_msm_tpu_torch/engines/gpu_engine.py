@@ -23,9 +23,11 @@ finish stage reduces the carry to window sums (extended, or affine with
 `device_affine`), and the host combines the windows. Copies and kernels are
 queued on the current stream without waiting: the functions that return a
 device tensor ("dispatch") do not synchronize, and the batch entry points
-fetch results only after every job has been queued. Every stage runs on
-`device`: the hand-written CUDA kernels on a GPU, their plain PyTorch
-versions on the CPU.
+fetch results only after every job has been queued, each job's window sums
+copied to the host right behind its own finish stage (`_HostCopy`), so
+that the host combines one job while the device runs the next. Every
+stage runs on `device`: the hand-written CUDA kernels on a GPU, their
+plain PyTorch versions on the CPU.
 
 Every stage goes through `_call_stage`, under the JAX engine's stage
 names: on a GPU it is one replay of a CUDA graph, captured at the stage's
@@ -49,6 +51,7 @@ from ..oracle.curve import ExtPoint
 from ..oracle.msm import combine_windows
 from ..ops import limbs, pippenger
 from ..ops.kernels import padd_kernels as pk
+from ..runtime import rows as row_copier
 from ..utils import cache, convert, trace
 
 
@@ -178,7 +181,10 @@ class _Staged:
     """A job's rows bound for the device, written batch by batch into one
     [pad_to, width] host tensor (`_staging`, allocated at the first
     write), so that a batch's copy can be queued while the next batch is
-    written; the rows past the source's are `pad`."""
+    written; the rows past the source's are `pad`. The source's first
+    `width` words a row are written by the native row copier
+    (`runtime/rows.py`), shared with its pool of workers from
+    `rows.PARALLEL_ROWS` rows on."""
 
     def __init__(self, src: np.ndarray, pad_to: int, pad: Sequence[int], device: torch.device):
         self.src, self.pad_to, self.device = src, pad_to, device
@@ -192,7 +198,8 @@ class _Staged:
             self.tensor, self.array = _staging((self.pad_to, self.pad.shape[0]), self.device)
         a = self.array
         mid = min(max(self.src.shape[0], lo), hi)
-        np.copyto(a[lo:mid], self.src[lo:mid, : a.shape[1]])
+        if row_copier.copy_rows(a[lo:mid], self.src[lo:mid]):
+            trace.count(trace.PARALLEL_BATCHES, 1)
         a[mid:hi] = self.pad
         trace.count(trace.STAGED_BYTES, (hi - lo) * a.shape[1] * 4)
         return self.tensor[lo:hi]
@@ -224,9 +231,36 @@ def window_sums_to_points(wsums: np.ndarray) -> list[ExtPoint]:
     return [ExtPoint(*xytz) for xytz in zip(*coords)]
 
 
-def _fetch_affine(out: torch.Tensor, w: int) -> tuple[int, int]:
-    """Fetch one job's window sums (this waits for the device), combine the
-    windows on the host and return the affine result."""
+class _HostCopy:
+    """A job's window sums on their way to the host: their copy into pinned
+    memory queued right behind the job's finish stage, and an event after
+    it. `cpu()` waits for that event alone, where `Tensor.cpu()` would wait
+    for everything queued on the stream since, the later jobs of a batch
+    included."""
+
+    def __init__(self, out: torch.Tensor):
+        self.host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        self.host.copy_(out, non_blocking=True)
+        self.done = torch.cuda.Event()
+        self.done.record(torch.cuda.current_stream(out.device))
+
+    def cpu(self) -> torch.Tensor:
+        self.done.synchronize()
+        return self.host
+
+
+def _queue_fetch(out: torch.Tensor, w: int):
+    """(window sums, w) of a job queued in a batch: on a GPU its copy to
+    the host is queued at once (`_HostCopy`), so that the job's fetch and
+    host combine run while the device runs the jobs queued after it; on
+    the CPU the sums as they are."""
+    return (_HostCopy(out) if out.is_cuda else out), w
+
+
+def _fetch_affine(out, w: int) -> tuple[int, int]:
+    """Fetch one job's window sums (a device tensor or a `_HostCopy`; this
+    waits for the device), combine the windows on the host and return the
+    affine result."""
     with trace.span("fetch"):
         wsums = out.cpu().numpy()
     with trace.span("combine windows"):
@@ -431,8 +465,10 @@ def msm_affine_wire(points_be: np.ndarray, scalars_be: np.ndarray, config: MSMCo
 def msm_affine_batch_wire(jobs: Sequence[tuple[np.ndarray, np.ndarray]], config: MSMConfig,
                           device: torch.device) -> list[tuple[int, int]]:
     """Many wire MSMs (each job's rows as for `msm_affine_wire`): every
-    job's copies and kernels are queued before any result is fetched."""
-    queued = [_dispatch_wire(points_be, scalars_be, config, device) for points_be, scalars_be in jobs]
+    job's copies and kernels, and the copy of its window sums to the host,
+    are queued before any result is fetched."""
+    queued = [_queue_fetch(*_dispatch_wire(points_be, scalars_be, config, device))
+              for points_be, scalars_be in jobs]
     return [_fetch_affine(out, w) for out, w in queued]
 
 
@@ -500,5 +536,5 @@ class WirePlan:
         return _fetch_affine(*self.dispatch(scalars_be))
 
     def msm_affine_batch(self, scalars_list: Sequence[np.ndarray]) -> list[tuple[int, int]]:
-        queued = [self.dispatch(s) for s in scalars_list]
+        queued = [_queue_fetch(*self.dispatch(s)) for s in scalars_list]
         return [_fetch_affine(out, w) for out, w in queued]

@@ -1,3 +1,4 @@
-"""The native CPU MSM library (`csrc/msm_cpu.cpp`), built with g++ at
-first use and loaded with ctypes."""
+"""The port's native host libraries, built with g++ at first use and
+loaded with ctypes: the CPU MSM engine (`csrc/msm_cpu.cpp`) and the GPU
+engine's staging row copier (`csrc/row_copy.cpp`, `rows.py`)."""
 from .build import NativeBuildError, load  # noqa: F401

@@ -55,7 +55,9 @@ label). The spans of one call or plan job, in order:
   above 2^254) writes its remaining batches without queueing them, each
   under the staging span, then records one "queue stages" that queues the
   whole job again on unsigned digits, from a fresh identity carry;
-- "fetch": the host waiting for the device and the device-to-host copy;
+- "fetch": the host waiting for the device and the device-to-host copy
+  (for a job of a batch, the wait for the copy queued behind its finish
+  stage, `gpu_engine._HostCopy`);
 - "combine windows": the window sums to points, their combination and
   the affine result, in Python integers.
 
@@ -63,7 +65,7 @@ Set-up has one span: "build plan", a `WirePlan`'s staging of the bases'
 x||y rows and their conversion to the resident rows (after "check inputs
 (wire)", or "convert inputs" for bases that need the marshal).
 
-Four counters (`count`), each one integer add, say how much work the spans
+Five counters (`count`), each one integer add, say how much work the spans
 cover:
 
 - `STAGED_BYTES`, "bytes staged": the bytes written into host tensors for
@@ -77,7 +79,11 @@ cover:
   plan job queued before the job's last batch was written, k - 1 a job of
   k batches;
 - `SIGNED_REQUEUES`, "signed re-queues": the jobs queued again on unsigned
-  digits after a batch failed the signed-digit test.
+  digits after a batch failed the signed-digit test;
+- `PARALLEL_BATCHES`, "batches staged in parallel": the writes of
+  `gpu_engine._Staged.rows` (a batch's x||y or scalar rows, or a plan's
+  bases) that the row copier shared with its pool of workers
+  (`runtime/rows.py`, from `PARALLEL_ROWS` rows on).
 
 `records()` keeps the newest `MAX_RECORDS` (label, ms) pairs of the spans,
 then one (label, total) for each counter that is not zero; `dropped()`
@@ -102,7 +108,8 @@ STAGED_BYTES = "bytes staged"
 BATCH_STAGES = "batch stages queued"
 BATCHES_STREAMED = "batches streamed"
 SIGNED_REQUEUES = "signed re-queues"
-COUNTERS = (STAGED_BYTES, BATCH_STAGES, BATCHES_STREAMED, SIGNED_REQUEUES)
+PARALLEL_BATCHES = "batches staged in parallel"
+COUNTERS = (STAGED_BYTES, BATCH_STAGES, BATCHES_STREAMED, SIGNED_REQUEUES, PARALLEL_BATCHES)
 
 _starts: Dict[str, float] = {}
 _records: List[tuple[str, float]] = []
